@@ -1,0 +1,198 @@
+"""EfficientNet backbone (port of mm_distillnet_tpu/models/efficientnet.py).
+
+Stem conv s2 -> MBConv blocks (expand / depthwise / SE / project) ->
+feature taps before each stride-2 block. NCHW inside. Attribute names
+follow the reference torch layout (`model._conv_stem.conv.weight`,
+`model._blocks.3._expand_conv.conv.weight`, ...).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from .layers import Conv2dSame, batch_norm, drop_connect, swish
+
+
+@dataclass(frozen=True)
+class BlockArgs:
+    kernel_size: int
+    num_repeat: int
+    input_filters: int
+    output_filters: int
+    expand_ratio: int
+    stride: int
+    se_ratio: float = 0.25
+    id_skip: bool = True
+
+
+# EfficientNet-B0 stage table (reference src/YetAnotherEfficientNet.py:321-326)
+BASE_BLOCKS: Tuple[BlockArgs, ...] = (
+    BlockArgs(3, 1, 32, 16, 1, 1),
+    BlockArgs(3, 2, 16, 24, 6, 2),
+    BlockArgs(5, 2, 24, 40, 6, 2),
+    BlockArgs(3, 3, 40, 80, 6, 2),
+    BlockArgs(5, 3, 80, 112, 6, 1),
+    BlockArgs(5, 4, 112, 192, 6, 2),
+    BlockArgs(3, 1, 192, 320, 6, 1),
+)
+
+# width, depth, resolution, dropout. Key -1 is the TEST-TINY profile (same
+# topology, ~10x fewer channels, one block per stage); not a reference
+# configuration.
+EFFICIENTNET_PARAMS = {
+    -1: (0.25, 0.1, 64, 0.0),
+    0: (1.0, 1.0, 224, 0.2),
+    1: (1.0, 1.1, 240, 0.2),
+    2: (1.1, 1.2, 260, 0.3),
+    3: (1.2, 1.4, 300, 0.3),
+    4: (1.4, 1.8, 380, 0.4),
+    5: (1.6, 2.2, 456, 0.4),
+    6: (1.8, 2.6, 528, 0.5),
+    7: (2.0, 3.1, 600, 0.5),
+}
+
+
+def round_filters(filters: int, width: float, divisor: int = 8) -> int:
+    """Reference src/YetAnotherEfficientNet.py:150-162."""
+    if not width:
+        return filters
+    filters *= width
+    new_filters = max(divisor, int(filters + divisor / 2) // divisor * divisor)
+    if new_filters < 0.9 * filters:
+        new_filters += divisor
+    return int(new_filters)
+
+
+def round_repeats(repeats: int, depth: float) -> int:
+    """Reference src/YetAnotherEfficientNet.py:165-170."""
+    if not depth:
+        return repeats
+    return int(math.ceil(depth * repeats))
+
+
+def expand_block_args(compound_coef: int) -> List[BlockArgs]:
+    """One BlockArgs per MBConv block after width/depth scaling; the first
+    block of each stage carries the stage stride."""
+    width, depth, _, _ = EFFICIENTNET_PARAMS[compound_coef]
+    blocks: List[BlockArgs] = []
+    for args in BASE_BLOCKS:
+        inp = round_filters(args.input_filters, width)
+        out = round_filters(args.output_filters, width)
+        reps = round_repeats(args.num_repeat, depth)
+        blocks.append(BlockArgs(args.kernel_size, 1, inp, out,
+                                args.expand_ratio, args.stride,
+                                args.se_ratio, args.id_skip))
+        for _ in range(reps - 1):
+            blocks.append(BlockArgs(args.kernel_size, 1, out, out,
+                                    args.expand_ratio, 1,
+                                    args.se_ratio, args.id_skip))
+    return blocks
+
+
+def se_squeeze_width(args: BlockArgs) -> int:
+    """SE squeeze channels come from the *input* filters
+    (reference src/YetAnotherEfficientNet.py:440-443)."""
+    return max(1, int(args.input_filters * args.se_ratio))
+
+
+def has_se(args: BlockArgs) -> bool:
+    return bool(args.se_ratio) and 0 < args.se_ratio <= 1
+
+
+class MBConvBlock(nn.Module):
+    """Mobile inverted bottleneck: expand 1x1 -> depthwise kxk -> SE ->
+    project 1x1, swish, drop-connect on the skip (reference
+    src/YetAnotherEfficientNet.py:402-489). The unfused module, NCHW."""
+
+    def __init__(self, args: BlockArgs, drop_connect_rate: float = 0.0):
+        super().__init__()
+        self.args = args
+        self.drop_connect_rate = drop_connect_rate
+        a = args
+        oup = a.input_filters * a.expand_ratio
+        if a.expand_ratio != 1:
+            self._expand_conv = Conv2dSame(a.input_filters, oup, 1, bias=False)
+            self._bn0 = batch_norm(oup)
+        self._depthwise_conv = Conv2dSame(oup, oup, a.kernel_size, a.stride,
+                                          groups=oup, bias=False)
+        self._bn1 = batch_norm(oup)
+        if has_se(a):
+            sq = se_squeeze_width(a)
+            self._se_reduce = Conv2dSame(oup, sq, 1)
+            self._se_expand = Conv2dSame(sq, oup, 1)
+        self._project_conv = Conv2dSame(oup, a.output_filters, 1, bias=False)
+        self._bn2 = batch_norm(a.output_filters)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.args
+        inputs = x
+        if a.expand_ratio != 1:
+            x = swish(self._bn0(self._expand_conv(x)))
+        x = swish(self._bn1(self._depthwise_conv(x)))
+        if has_se(a):
+            s = x.mean(dim=(2, 3), keepdim=True)
+            s = self._se_expand(swish(self._se_reduce(s)))
+            x = torch.sigmoid(s) * x
+        x = self._bn2(self._project_conv(x))
+        if a.id_skip and a.stride == 1 and a.input_filters == a.output_filters:
+            x = drop_connect(x, self.drop_connect_rate, self.training)
+            x = x + inputs
+        return x
+
+
+class EfficientNet(nn.Module):
+    """Stem + MBConv blocks; forward returns the pyramid taps [P1..P5]."""
+
+    def __init__(self, compound_coef: int = 2, in_channels: int = 3,
+                 drop_connect_rate: float = 0.2):
+        super().__init__()
+        width, _, _, _ = EFFICIENTNET_PARAMS[compound_coef]
+        self.block_args = expand_block_args(compound_coef)
+        stem = round_filters(32, width)
+        self._conv_stem = Conv2dSame(in_channels, stem, 3, 2, bias=False)
+        self._bn0 = batch_norm(stem)
+        n = len(self.block_args)
+        self._blocks = nn.ModuleList(
+            MBConvBlock(a, drop_connect_rate * float(i) / n)
+            for i, a in enumerate(self.block_args))
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = swish(self._bn0(self._conv_stem(x)))
+        feature_maps = []
+        last_x = None
+        n = len(self._blocks)
+        for idx, block in enumerate(self._blocks):
+            if block.args.stride == 2:
+                feature_maps.append(last_x)
+            x = block(x)
+            if idx == n - 1:
+                feature_maps.append(x)
+            last_x = x
+        return feature_maps
+
+
+class EfficientNetFeatures(nn.Module):
+    """Backbone feature extractor returning [P2, P3, P4, P5] (the first tap
+    is dropped, reference src/YetAnotherEfficientDet.py:550-572). The body
+    sits under `.model` as in the reference's EfficientNet wrapper."""
+
+    def __init__(self, compound_coef: int = 2, in_channels: int = 3,
+                 drop_connect_rate: float = 0.2):
+        super().__init__()
+        self.compound_coef = compound_coef
+        self.model = EfficientNet(compound_coef, in_channels,
+                                  drop_connect_rate)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        return self.model(x)[1:]
+
+
+def backbone_feature_channels(compound_coef: int) -> Tuple[int, int, int]:
+    """Channels of P3/P4/P5 (reference src/YetAnotherEfficientDet.py:625-634)."""
+    width, _, _, _ = EFFICIENTNET_PARAMS[compound_coef]
+    return (round_filters(40, width), round_filters(112, width),
+            round_filters(320, width))
