@@ -5,13 +5,17 @@
 
 Phases, each of which fails the run on any error:
   1. environment: the card's name and power limit (nvidia-smi), versions;
-  2. build: nvcc of every mm_distillnet_torch/csrc/*.cu (timed);
+  2. build: nvcc of every mm_distillnet_torch/csrc/*.cu, one process each,
+     all started together (timed);
   3. kernels: at each of the 23 MBConv block shapes of EfficientDet-D2 at
      768 px, at the serving batch, with seeded folded weights, each CUDA
      kernel (expand+depthwise, SE, project) and the whole block are held
      against their plain PyTorch versions on the same inputs (bf16 outputs
      at rtol = atol = 2e-2 and correlation > 0.9999; the fp32 SE gate at
-     rtol = atol = 1e-4) and timed with CUDA events beside their bound;
+     rtol = atol = 1e-4; the tile sums of two launches bit-equal) and timed
+     beside their bound: device time, CUDA events around replays of a CUDA
+     graph of 20 launches, so that the host's launch rate (about 20 us a
+     launch) does not floor the reading;
   4. slice: a D2 audio student (8 channels, 20 classes, seeded weights, BN
      statistics from one train-mode pass) served at 768 px through
      make_serving_fn / serve_many (requests of 5, 8 and 13 images at batch
@@ -25,7 +29,9 @@ Phases, each of which fails the run on any error:
      ('flax:0-22') and match at least 95% as many detections. Serving
      time at the batch is measured, and torch.profiler gives the kernel
      time by name and the device's busy share for the serve, the forward
-     and the backbone.
+     and the backbone, and the backbone device time of the unfused bf16
+     plan (a sequence of cuDNN and elementwise library calls per block;
+     the port never routes through it) as a yardstick for the whole block.
   5. report: one JSON line of kernel results, then as the last line
      {"ok": true, "device": {...}}.
 
@@ -59,12 +65,15 @@ from mm_distillnet_torch.serving import make_serving_fn, serve_many
 IMAGE_SIZE = 768
 IN_CHANNELS = 8
 NUM_CLASSES = 20
-SOURCE = 'mm_distillnet_torch/csrc/mbconv.cu'
+SOURCES = {'mbconv_expand_dw': 'mm_distillnet_torch/csrc/mbconv_expand_dw.cu',
+           'mbconv_se': 'mm_distillnet_torch/csrc/mbconv.cu',
+           'mbconv_project': 'mm_distillnet_torch/csrc/mbconv_project.cu'}
 REPLACES = 'mm_distillnet_tpu/ops/pallas_mbconv.py:137'
 OUT_DIR = Path(__file__).resolve().parent / 'chiprun_out'
-# the kernels of csrc/mbconv.cu by their names in a profiler trace
-MBCONV_KERNEL = re.compile(
-    r'\b(expand_dw_kernel|se_kernel|project_kernel)\b')
+# the kernels of csrc/mbconv*.cu by their names in a profiler trace
+KERNEL_NAMES = {'mbconv_expand_dw': re.compile(r'\b(expand_dw_kernel|dw_only_kernel)\b'),
+                'mbconv_se': re.compile(r'\bse_kernel\b'),
+                'mbconv_project': re.compile(r'\bproject_kernel\b')}
 
 
 def card_line() -> str:
@@ -88,6 +97,26 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 3) -> float:
+    """Mean device time of fn(): a CUDA graph of `reps` calls, replayed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def host_ms(fn, reps: int) -> float:
@@ -117,12 +146,14 @@ def device_breakdown(fn, reps: int = 3) -> dict:
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         return {'measured': False}
-    mbconv_us = sum(e.self_device_time_total for e in kernels
-                    if MBCONV_KERNEL.search(e.key))
+    by_kernel = {n: sum(e.self_device_time_total for e in kernels
+                        if pat.search(e.key)) / reps / 1e3
+                 for n, pat in KERNEL_NAMES.items()}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     return {'measured': True,
             'kernel_ms': busy_us / reps / 1e3,
-            'mbconv_kernel_ms': mbconv_us / reps / 1e3,
+            'mbconv_kernel_ms': sum(by_kernel.values()),
+            'by_kernel_ms': by_kernel,
             'launches': sum(e.count for e in kernels) / reps,
             'top': [{'name': e.key[:96],
                      'ms': e.self_device_time_total / reps / 1e3,
@@ -184,6 +215,10 @@ def kernel_phase(batch: int, seed: int, device):
         err_a = check_bf16(f'block {i} expand_dw', d, d_ref)
         torch.testing.assert_close(sums.sum(1) / hw, sums_ref.sum(1) / hw,
                                    rtol=2e-2, atol=2e-2)
+        d_again, sums_again = fm.expand_dw(x, f, args)
+        if not (torch.equal(sums, sums_again) and torch.equal(d, d_again)):
+            raise AssertionError(f'block {i}: two launches of expand_dw '
+                                 'differ; the SE sums must be reproducible')
         gate = fm.se_gate(sums, f, hw)
         torch.cuda.synchronize()
         gate_ref = fm.se_gate_reference(sums, f, hw)
@@ -198,10 +233,10 @@ def kernel_phase(batch: int, seed: int, device):
         err_block = check_bf16(f'block {i} whole', y, y_ref)
         differ = float((y != y_ref).float().mean())
 
-        ms = {'mbconv_expand_dw': time_ms(lambda: fm.expand_dw(x, f, args), 20),
-              'mbconv_se': time_ms(lambda: fm.se_gate(sums, f, hw), 20),
-              'mbconv_project': time_ms(lambda: fm.project(d, gate, f, skip),
-                                        20)}
+        ms = {'mbconv_expand_dw': graph_ms(lambda: fm.expand_dw(x, f, args)),
+              'mbconv_se': graph_ms(lambda: fm.se_gate(sums, f, hw)),
+              'mbconv_project': graph_ms(
+                  lambda: fm.project(d, gate, f, skip))}
         plain = {
             'mbconv_expand_dw': time_ms(
                 lambda: fm.expand_dw_reference(x, f, args), 5, 1),
@@ -377,6 +412,8 @@ def slice_phase(batch: int, seed: int, device):
         'forward_ms': host_ms(lambda: serve.forward(x), 5),
         'backbone_ms': host_ms(lambda: serve.forward.backbone(x), 5),
         'unfused_serve_ms': host_ms(lambda: serve_f16(x), 5),
+        'unfused_backbone_ms': host_ms(
+            lambda: serve_f16.forward.backbone(x), 5),
     }
     timing['postprocess_ms'] = timing['serve_ms'] - timing['forward_ms']
     timing['images_per_s'] = batch * 1e3 / timing['serve_ms']
@@ -387,7 +424,11 @@ def slice_phase(batch: int, seed: int, device):
     profiled = {'serve': device_breakdown(lambda: serve(x)),
                 'forward': device_breakdown(lambda: serve.forward(x)),
                 'backbone': device_breakdown(
-                    lambda: serve.forward.backbone(x))}
+                    lambda: serve.forward.backbone(x)),
+                # the unfused bf16 plan's blocks: cuDNN convolutions and
+                # elementwise library calls, several per block
+                'unfused_backbone': device_breakdown(
+                    lambda: serve_f16.forward.backbone(x))}
     for part, p in profiled.items():
         if p['measured']:
             p['busy_share'] = p['kernel_ms'] / timing[f'{part}_ms']
@@ -451,14 +492,21 @@ def main(argv=None) -> int:
           f'python {sys.version.split()[0]}', flush=True)
 
     t = time.perf_counter()
-    libs = [n for n in cuda_build.sources() if cuda_build.load(n)]
+    libs = cuda_build.build_all()
     build_s = time.perf_counter() - t
     print(f'built {libs} in {build_s:.1f} s', flush=True)
     for name, log in cuda_build.build_logs.items():
-        for line in log.splitlines():
-            if any(w in line for w in ('entry function', 'registers',
-                                       'spill', 'error')):
+        lines = log.splitlines()
+        # ptxas notes where it adds a wgmma fence or wait of its own
+        injected = sum('is injected' in line for line in lines)
+        for line in lines:
+            if (any(w in line for w in ('Used', 'spill', 'error',
+                                        'serialized'))
+                    and 'bytes stack frame, 0 bytes spill' not in line):
                 print(f'  nvcc {name}: {line.strip()}')
+        if injected:
+            print(f'  nvcc {name}: {injected} wgmma fences/waits injected '
+                  'by ptxas')
 
     totals, rows = kernel_phase(a.batch, a.seed, device)
     served = slice_phase(a.batch, a.seed, device)
@@ -466,7 +514,7 @@ def main(argv=None) -> int:
     kernels = []
     for name, t in totals.items():
         kernels.append({
-            'name': name, 'route': 'cuda', 'source': SOURCE,
+            'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES, 'launches': served['counts'][name],
             'max_abs_err': t['max_abs_err'], 'ms': t['ms'],
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],

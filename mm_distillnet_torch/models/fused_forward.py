@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..ops.fused_mbconv import check_kernel_fits, fold_mbconv, mbconv_fused
+from ..ops.fused_mbconv import (PROJECT_BM, check_kernel_fits, fold_mbconv,
+                                mbconv_fused)
 from .efficientdet import BACKBONE_COEF, DetectorOutput, EfficientDet, nchw, nhwc
 from .efficientnet import BlockArgs, MBConvBlock, expand_block_args
 from .layers import BN_EPS, pad_same_nchw, swish
@@ -86,6 +87,11 @@ class FusedBackbone:
                 if args.stride == 2 and spatial % 2:
                     raise ValueError(f'block {i}: stride 2 on odd size '
                                      f'{spatial} has no kernel')
+                out = spatial // args.stride
+                if self.device.type == 'cuda' and out * out < PROJECT_BM:
+                    raise ValueError(f'block {i}: the project kernel needs '
+                                     f'{PROJECT_BM} pixels per image, the '
+                                     f'map has {out}x{out}')
                 payload = fold_mbconv(bsd, args, self.device)
             else:
                 payload = MBConvBlock(args)

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its own
 with nvcc for Hopper (`sm_90a`) into `build/mm_distillnet_torch/` at the
-root of the checkout, at first use. The library's file name carries a hash
+root of the checkout, at first use (`load`) or all at once, in parallel
+(`build_all`). The library's file name carries a hash
 of the sources and flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is. A failed build raises with nvcc's output.
 
@@ -49,27 +50,51 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f'lib{name}-{h.hexdigest()[:16]}.so'
 
 
-def _build(name: str) -> None:
-    """Compile csrc/<name>.cu unless its library is already built."""
+def _start(name: str):
+    """Start nvcc for csrc/<name>.cu unless its library is already built."""
     out = _lib_path(name)
     if out.exists():
-        return
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f'.{os.getpid()}.tmp')
     cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    build_logs[name] = proc.stdout
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    build_logs[name] = log
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'nvcc failed for csrc/{name}.cu:\n{proc.stdout}')
+        raise RuntimeError(f'nvcc failed for csrc/{name}.cu:\n{log}')
     os.replace(tmp, out)
+
+
+def build_all() -> List[str]:
+    """Build every source that is not built yet, one nvcc each, all started
+    together. Returns the sources' names."""
+    names = sources()
+    started = {n: _start(n) for n in names}
+    errors = []
+    for n in names:
+        try:
+            _finish(n, started[n])
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError('\n'.join(errors))
+    return names
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, building it if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        _build(name)
+        _finish(name, _start(name))
         lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib

@@ -1,17 +1,33 @@
 """Fused eval-mode MBConv block: BN folding, the plain PyTorch version, and
-the wrappers of the hand-written CUDA kernels in csrc/mbconv.cu.
+the wrappers of the hand-written CUDA kernels in csrc/mbconv*.cu.
 
 Counterpart of mm_distillnet_tpu/ops/pallas_mbconv.py: `_mbconv_kernel`
 (launched by `mbconv_fused`) runs a whole MBConv block per image out of
-VMEM. On Hopper the block is three kernels (see csrc/mbconv.cu):
+VMEM. On Hopper the block is three kernels:
 
-  (a) `expand_dw`  expand 1x1 + swish + depthwise kxk + swish, 8x8 output
-                   tiles with the expand recomputed on the halo; bf16 output
-                   plus fp32 per-tile channel sums;
-  (b) `se_gate`    tile sums -> mean -> SE GEMVs -> fp32 gate;
-  (c) `project`    gated project GEMM + bias + identity skip, bf16 out.
+  (a) `expand_dw`  csrc/mbconv_expand_dw.cu. One CTA per spatial output tile
+                   (`tile_plan`: 16x8 at stride 1, 8x8 at stride 2, on small
+                   maps and where 16x8 does not fit) walks over 48-channel
+                   chunks: expand 1x1 on wgmma over the tile's input halo
+                   (loaded once), bias + swish to a bf16 tile in shared
+                   memory, depthwise kxk from a register window while the
+                   next chunk's wgmma runs; bf16 output plus fp32 per-tile
+                   channel sums. On-chip work bounds it (the swish of the
+                   recomputed halo, the depthwise FMAs), not its bytes;
+  (b) `se_gate`    csrc/mbconv.cu. Tile sums -> mean -> SE GEMVs -> fp32
+                   gate; latency-bound;
+  (c) `project`    csrc/mbconv_project.cu. Tiles of 64 rows per consumer
+                   warpgroup x up to 256 output channels (`project_plan`);
+                   a producer warp brings d (TMA boxes of a tensor map),
+                   the gates and w_prj through a 2-4-stage ring; bf16(d *
+                   gate) is formed in registers and fed to wgmma; bias +
+                   identity skip in fp32, bf16 out. How fast an SM takes d
+                   in, and each warp's own instruction chain, bound it.
 
-What bounds them and why the design is so is noted in the CUDA source.
+The kernels read the weights in layouts made once at fold time
+(`pack_expand`, `pack_project`): K-major 8x8 core matrices as wgmma reads
+them from shared memory, cut into the pieces one copy brings in. What
+bounds each kernel and why its design is so is noted in its CUDA source.
 
 Each wrapper runs its kernel for a CUDA tensor and counts the launch in
 `launches`; for a CPU tensor it runs the plain version (`*_reference`),
@@ -22,13 +38,15 @@ depthwise output before its bf16 rounding, the gate is applied in fp32 and
 rounded to bf16 before the project, the skip is added in fp32.
 There is no fallback: a CUDA tensor launches the kernel or raises.
 
-Layout: NHWC activations; expanded channels padded to a multiple of 32
-(`CHANNEL_ALIGN`, the channel chunk of kernel (a)); padded channels carry
-zero weights and stay exact zeros end to end.
+Layout: NHWC activations; expanded channels padded to CeP, a multiple of
+48 (`CHUNK`, the channel chunk of kernel (a); 6 * Cin already is one for
+every width that is a multiple of 8) or, in a block without expand, of 32;
+padded channels carry zero weights and stay exact zeros end to end.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Mapping, NamedTuple, Optional, Tuple
 
 import torch
@@ -38,8 +56,14 @@ from ..models.efficientnet import BlockArgs, has_se
 from ..models.layers import BN_EPS, same_pad_amounts, swish
 from . import cuda_build
 
-CHANNEL_ALIGN = 32        # expanded channels per block of kernel (a)
-TILE = 8                  # output tile side of kernel (a)
+CHUNK = 48                # expanded channels per chunk of kernel (a)
+NOEXPAND_ALIGN = 32       # channel alignment of a block without expand
+PROJECT_BM = 64           # rows per CTA of kernel (c)
+PROJECT_BK = 128          # K per pipeline stage of kernel (c)
+PROJECT_WIDTHS = (16, 32, 64, 96, 128, 192, 256)   # (c)'s accumulator widths
+# zero bytes behind pack_project's last value: the widest piece a CTA copies
+PROJECT_SLACK = PROJECT_WIDTHS[-1] * PROJECT_BK * 2
+NUM_SMS = 132
 MAX_SMEM_BYTES = 232448   # dynamic shared memory one H100 block may use
 
 launches = {'mbconv_expand_dw': 0, 'mbconv_se': 0, 'mbconv_project': 0}
@@ -58,6 +82,10 @@ class FoldedMBConv(NamedTuple):
     b_se2: torch.Tensor             # (CeP,) f32
     w_prj: torch.Tensor             # (CeP, Co) bf16
     b_prj: torch.Tensor             # (Co,) f32
+    # the same weights as the kernels read them (pack_expand, pack_project)
+    wexp_pack: Optional[torch.Tensor] = None   # uint8, chunks of w_exp+b_exp
+    dw_pack: Optional[torch.Tensor] = None     # uint8, chunks of w_dw+b_dw
+    wprj_pack: Optional[torch.Tensor] = None   # uint8, K-blocks of w_prj
 
 
 def _round_up(v: int, m: int) -> int:
@@ -85,7 +113,7 @@ def fold_mbconv(sd: Mapping[str, torch.Tensor], args: BlockArgs,
     if not has_se(args):
         raise ValueError('the fused MBConv kernels need a squeeze-excite')
     ce = args.input_filters * args.expand_ratio
-    cep = _round_up(ce, CHANNEL_ALIGN)
+    cep = _round_up(ce, CHUNK if args.expand_ratio != 1 else NOEXPAND_ALIGN)
     if args.expand_ratio != 1:
         k, b = _fold_conv_bn(sd['_expand_conv.conv.weight'], sd, '_bn0')
         w_exp = _pad_cols(k[:, :, 0, 0].t(), cep).to(torch.bfloat16)
@@ -102,8 +130,11 @@ def fold_mbconv(sd: Mapping[str, torch.Tensor], args: BlockArgs,
     w_se2 = _pad_cols(sd['_se_expand.conv.weight'][:, :, 0, 0].float().t(),
                       cep)
     b_se2 = _pad_cols(sd['_se_expand.conv.bias'].float(), cep)
+    wexp_pack = dw_pack = None
+    if w_exp is not None:
+        wexp_pack, dw_pack = pack_expand(w_exp, b_exp, w_dw, b_dw)
     tensors = (w_exp, b_exp, w_dw, b_dw, w_se1, b_se1, w_se2, b_se2,
-               w_prj, b)
+               w_prj, b, wexp_pack, dw_pack, pack_project(w_prj))
     return FoldedMBConv(*(None if t is None else t.contiguous().to(device)
                           for t in tensors))
 
@@ -122,22 +153,217 @@ def output_hw(h: int, w: int, args: BlockArgs) -> Tuple[int, int]:
     return h // s, w // s
 
 
-def num_tiles(ho: int, wo: int) -> int:
-    return -(-ho // TILE) * -(-wo // TILE)
+# ---------------------------------------------------------------------------
+# the weights as the kernels read them
+# ---------------------------------------------------------------------------
+
+def _core_matrices(w: torch.Tensor) -> torch.Tensor:
+    """(N, K) -> the bytes of a K-major wgmma operand without swizzle: 8x8
+    core matrices of 128 contiguous bytes, K fastest, then N."""
+    n, k = w.shape
+    return (w.reshape(n // 8, 8, k // 8, 8).permute(0, 2, 1, 3)
+            .contiguous().view(torch.uint8).reshape(-1))
 
 
-def expand_dw_smem_bytes(args: BlockArgs) -> int:
-    """Shared memory that kernel (a) needs for this block (csrc/mbconv.cu
-    expand_dw_smem): the fp32 expanded tile (pixels padded to 40 floats),
-    depthwise weights and biases, and for an expand the bf16 input halo and
-    w_exp chunk (rows of round_up(cin, 16) + 8)."""
+def _from_core_matrices(raw: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    return (raw.view(torch.bfloat16).reshape(n // 8, k // 8, 8, 8)
+            .permute(0, 2, 1, 3).reshape(n, k))
+
+
+def _f32_bytes(a: torch.Tensor) -> torch.Tensor:
+    return a.contiguous().view(torch.uint8).reshape(a.shape[0], -1)
+
+
+def pack_expand(w_exp: torch.Tensor, b_exp: torch.Tensor,
+                w_dw: torch.Tensor, b_dw: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel (a)'s weights, one record per chunk of CHUNK channels.
+    wexp_pack: w_exp transposed to (CHUNK, kpad) with K zero-padded to a
+    multiple of 16, as core matrices, then the chunk's b_exp (fp32).
+    dw_pack: the chunk's w_dw (k*k, CHUNK) then b_dw (CHUNK), fp32."""
+    cin, cep = w_exp.shape
+    kpad = _round_up(cin, 16)
+    n = cep // CHUNK
+    wt = F.pad(w_exp.t(), (0, kpad - cin)).reshape(n, CHUNK, kpad)
+    w = torch.stack([_core_matrices(c) for c in wt])
+    wexp_pack = torch.cat([w, _f32_bytes(b_exp.reshape(n, CHUNK))], dim=1)
+    kk = w_dw.shape[0] * w_dw.shape[1]
+    taps = w_dw.reshape(kk, n, CHUNK).permute(1, 0, 2).reshape(n, kk * CHUNK)
+    dw_pack = torch.cat([_f32_bytes(taps),
+                         _f32_bytes(b_dw.reshape(n, CHUNK))], dim=1)
+    return wexp_pack.reshape(-1), dw_pack.reshape(-1)
+
+
+def unpack_expand(wexp_pack: torch.Tensor, dw_pack: torch.Tensor, cin: int,
+                  k: int):
+    """Inverse of pack_expand: (w_exp, b_exp, w_dw, b_dw)."""
+    kpad = _round_up(cin, 16)
+    rec = wexp_pack.reshape(-1, CHUNK * kpad * 2 + CHUNK * 4)
+    n = rec.shape[0]
+    w = torch.stack([_from_core_matrices(r[:CHUNK * kpad * 2].contiguous(),
+                                         CHUNK, kpad) for r in rec])
+    w_exp = w.reshape(n * CHUNK, kpad)[:, :cin].t()
+    b_exp = rec[:, CHUNK * kpad * 2:].contiguous().view(torch.float32)
+    dw = dw_pack.reshape(n, -1).view(torch.float32).reshape(n, k * k + 1,
+                                                            CHUNK)
+    w_dw = dw[:, :-1].permute(1, 0, 2).reshape(k, k, n * CHUNK)
+    return w_exp, b_exp.reshape(-1), w_dw, dw[:, -1].reshape(-1)
+
+
+def pack_project(w_prj: torch.Tensor) -> torch.Tensor:
+    """Kernel (c)'s w_prj: for each block of PROJECT_BK rows of K, the
+    block transposed to (Co, bk) as core matrices, so that any range of
+    output channels of a K-block is one contiguous piece. Behind the last
+    value lies as much zero slack as the widest piece a CTA may copy."""
+    cep, _ = w_prj.shape
+    parts = [_core_matrices(w_prj[k0:k0 + PROJECT_BK].t())
+             for k0 in range(0, cep, PROJECT_BK)]
+    parts.append(torch.zeros(PROJECT_SLACK, dtype=torch.uint8,
+                             device=w_prj.device))
+    return torch.cat(parts)
+
+
+def unpack_project(wprj_pack: torch.Tensor, cep: int, co: int) -> torch.Tensor:
+    """Inverse of pack_project: w_prj (CeP, Co)."""
+    rows, at = [], 0
+    for k0 in range(0, cep, PROJECT_BK):
+        bk = min(PROJECT_BK, cep - k0)
+        rows.append(_from_core_matrices(wprj_pack[at:at + co * bk * 2], co,
+                                        bk).t())
+        at += co * bk * 2
+    return torch.cat(rows)
+
+
+# ---------------------------------------------------------------------------
+# tile plans (mirrors of the kernels' geometry)
+# ---------------------------------------------------------------------------
+
+class TilePlan(NamedTuple):
+    """Kernel (a)'s tiling of one block at one shape: th x tw output pixels
+    per tile, and the chunks of a tile split over `nsplit` CTAs."""
+    th: int
+    tw: int
+    nsplit: int
+
+
+def num_tiles(ho: int, wo: int, th: int, tw: int) -> int:
+    return -(-ho // th) * -(-wo // tw)
+
+
+def _tile_row_stride(min_bytes: int, s: int) -> int:
+    r = _round_up(min_bytes, 16)
+    while (s * r) % 128 != 96:
+        r += 16
+    return r
+
+
+@functools.lru_cache(maxsize=None)
+def expand_dw_smem_bytes(args: BlockArgs, th: int = 8, tw: int = 8) -> int:
+    """Shared memory that kernel (a) needs for this block with th x tw
+    tiles (csrc/mbconv_expand_dw.cu `Geom::smem_bytes` and
+    `launch_dw_only`). With an expand: the bf16 input halo in 64-row groups,
+    two stages of chunk records, two bf16 expanded tiles (112 bytes a
+    pixel, padded rows), two staged output chunks and their strip sums."""
     k, s, cin = args.kernel_size, args.stride, args.input_filters
-    np_ = ((TILE - 1) * s + k) ** 2
-    n = (np_ * (CHANNEL_ALIGN + 8) + k * k * CHANNEL_ALIGN
-         + 10 * CHANNEL_ALIGN) * 4
-    if args.expand_ratio != 1:
-        n += (CHANNEL_ALIGN + np_) * (_round_up(cin, 16) + 8) * 2
-    return n
+    hph, hpw = (th - 1) * s + k, (tw - 1) * s + k
+    if args.expand_ratio == 1:
+        cep = _round_up(cin, NOEXPAND_ALIGN)
+        return (_round_up(hph * hpw * (cep * 2 + 16), 128) + th * tw * cep * 2
+                + th * (tw // 8) * cep * 4)
+    kpad = _round_up(cin, 16)
+    groups = -(-hph * hpw // 64)
+    stage = _round_up(CHUNK * kpad * 2 + CHUNK * 4 + (k * k + 1) * CHUNK * 4,
+                      128)
+    etile = _round_up(hph * _tile_row_stride(hpw * (CHUNK * 2 + 16), s), 128)
+    strips = th * tw // (8 if th * tw >= 128 or (k, s) == (5, 2) else 4)
+    return (128 + groups * 64 * kpad * 2 + 2 * stage + 2 * etile
+            + 2 * th * tw * CHUNK * 2 + 2 * strips * CHUNK * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(args: BlockArgs, batch: int, ho: int, wo: int) -> TilePlan:
+    """A static choice by shape. 16x8 tiles halve the halo recompute of 8x8
+    ones; they are taken at stride 1 where they fit in shared memory and
+    leave at least one CTA per SM. The chunks of a tile are split over up to
+    8 CTAs where that shortens the schedule on NUM_SMS SMs, a wave costing
+    its chunks plus about 1.5 chunks for the halo load and the first GEMM."""
+    if args.expand_ratio == 1:
+        return TilePlan(16, 8, 1)
+    th = 8
+    if (args.stride == 1 and expand_dw_smem_bytes(args, 16, 8) <= MAX_SMEM_BYTES
+            and batch * num_tiles(ho, wo, 16, 8) >= NUM_SMS):
+        th = 16
+    ctas = batch * num_tiles(ho, wo, th, 8)
+    chunks = args.input_filters * args.expand_ratio // CHUNK
+
+    def cost(n):
+        return -(-ctas * n // NUM_SMS) * (-(-chunks // n) + 1.5)
+    nsplit = min(range(1, min(chunks, 8) + 1), key=cost)
+    return TilePlan(th, 8, nsplit)
+
+
+class ProjectPlan(NamedTuple):
+    """Kernel (c)'s launch at one shape: output channels per CTA, CTAs that
+    share the row tiles, consumer warpgroups per CTA (64 rows each) and the
+    depth of the ring."""
+    cols: int
+    row_ctas: int
+    nwg: int
+    stages: int
+
+
+def project_smem_bytes(cep: int, cols: int, nwg: int, stages: int,
+                       alias_out: bool) -> int:
+    """Shared memory of kernel (c) (csrc/mbconv_project.cu `project_smem`):
+    barriers and alignment room, the ring (per warpgroup the 64x64 boxes of
+    d and the gates of two images, and one w_prj piece), and the fp32 output
+    tile, behind the ring or (one tile per CTA) over it."""
+    nt = next(w for w in PROJECT_WIDTHS if w >= cols)
+    kmax = min(PROJECT_BK, cep)
+    stage = _round_up(nwg * (-(-kmax // 64) * PROJECT_BM * 128 + 2 * kmax * 4)
+                      + nt * kmax * 2, 1024)
+    out = nwg * PROJECT_BM * (nt + (40 - nt % 32) % 32) * 4
+    ring = stages * stage
+    return 2048 + (max(ring, out) if alias_out else ring + out)
+
+
+def make_project_plan(m: int, cep: int, co: int, nwg: int, stages: int,
+                      persistent: bool) -> ProjectPlan:
+    """The plan with these choices: the column split that fills the SMs, and
+    the CTA count (one CTA per row tile, or as many as the SMs hold at once,
+    four at most each). Raises if the ring does not fit."""
+    groups = co // 8
+    row_tiles = -(-m // (PROJECT_BM * nwg))
+    parts = [n for n in range(1, groups + 1)
+             if groups % n == 0 and co // n <= PROJECT_WIDTHS[-1]]
+    few = [n for n in parts if n <= max(2, parts[0])]
+    filling = [n for n in few if row_tiles * n >= NUM_SMS]
+    cols = co // (filling[0] if filling else few[-1])
+    smem = project_smem_bytes(cep, cols, nwg, stages, not persistent)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f'the project kernel\'s ring of {stages} stages '
+                         f'needs {smem} B of shared memory')
+    row_ctas = row_tiles
+    if persistent:   # an SM has 228 KB; each CTA reserves 1 KB more
+        per_sm = min(4, 233472 // (smem + 1024))
+        row_ctas = min(row_tiles, NUM_SMS * per_sm)
+    return ProjectPlan(cols, row_ctas, nwg, stages)
+
+
+@functools.lru_cache(maxsize=None)
+def project_plan(m: int, cep: int, co: int) -> ProjectPlan:
+    """A static choice by shape. Output channels per CTA: all of them where
+    they fit one accumulator (256) and the row tiles fill the SMs; else Co is
+    cut in two equal parts (or the fewest that fit), so that d is read twice
+    at most at every EfficientDet-D2 shape."""
+    nkb = -(-cep // PROJECT_BK)
+    nwg = 2 if m >= 2 * PROJECT_BM else 1
+    for stages in (4, 3, 2):
+        try:
+            return make_project_plan(m, cep, co, nwg, stages, nkb <= 2)
+        except ValueError:
+            continue
+    raise ValueError(f'no ring of the project kernel fits Co = {co}')
 
 
 def check_kernel_fits(args: BlockArgs) -> None:
@@ -147,13 +373,13 @@ def check_kernel_fits(args: BlockArgs) -> None:
                          f's={args.stride}')
     if not has_se(args):
         raise ValueError('the fused MBConv kernels need a squeeze-excite')
-    if args.expand_ratio != 1 and args.input_filters % 8:
+    if args.input_filters % 8:
         raise ValueError('the expand kernel reads the input 8 channels at a '
                          f'time; got {args.input_filters} channels')
-    if args.output_filters % 2:
-        raise ValueError('the project kernel writes channel pairs; got '
-                         f'{args.output_filters} output channels')
-    smem = expand_dw_smem_bytes(args)
+    if args.output_filters % 8:
+        raise ValueError('the project kernel writes 8 output channels at a '
+                         f'time; got {args.output_filters}')
+    smem = expand_dw_smem_bytes(args, 16 if args.expand_ratio == 1 else 8, 8)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f'MBConv block {args} needs {smem} B of shared '
                          f'memory, more than {MAX_SMEM_BYTES}')
@@ -221,27 +447,25 @@ def mbconv_fused_reference(x: torch.Tensor, f: FoldedMBConv,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# entry point -> (its source in csrc/, its C argument types)
 _SIGNATURES = {
-    'mbconv_expand_dw': [_P] * 7 + [_I] * 9 + [_P],
-    'mbconv_se': [_P] * 6 + [_I] * 5 + [_P],
-    'mbconv_project': [_P] * 6 + [_I] * 4 + [_P],
+    'mbconv_expand_dw': ('mbconv_expand_dw', [_P] * 7 + [_I] * 13 + [_P]),
+    'mbconv_se': ('mbconv', [_P] * 6 + [_I] * 5 + [_P]),
+    'mbconv_project': ('mbconv_project', [_P] * 6 + [_I] * 8 + [_P]),
 }
+_FUNCTIONS: dict = {}
 
 
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def _lib() -> ctypes.CDLL:
-    """csrc/mbconv.cu, built at first use, with its C signatures set."""
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load('mbconv')
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+def _fn(name: str):
+    """The C entry point `name`; its source is built at first use."""
+    fn = _FUNCTIONS.get(name)
+    if fn is None:
+        source, argtypes = _SIGNATURES[name]
+        fn = getattr(cuda_build.load(source), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[name] = fn
+    return fn
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -284,21 +508,27 @@ def expand_dw(x: torch.Tensor, f: FoldedMBConv, args: BlockArgs
     _check(x, torch.bfloat16, (b, h, w, args.input_filters), dev, 'x')
     if x.data_ptr() % 16:
         raise ValueError('x must start on a 16-byte boundary')
-    if f.w_exp is not None:
-        _check(f.w_exp, torch.bfloat16, (cin, cep), dev, 'w_exp')
-        _check(f.b_exp, torch.float32, (cep,), dev, 'b_exp')
-    elif args.expand_ratio != 1:
-        raise ValueError('folded weights lack the expand conv')
+    kpad = _round_up(cin, 16)
+    if args.expand_ratio != 1:
+        if f.wexp_pack is None:
+            raise ValueError('folded weights lack the expand conv')
+        n = cep // CHUNK
+        _check(f.wexp_pack, torch.uint8,
+               (n * (CHUNK * kpad * 2 + CHUNK * 4),), dev, 'wexp_pack')
+        _check(f.dw_pack, torch.uint8, (n * (k * k + 1) * CHUNK * 4,), dev,
+               'dw_pack')
     _check(f.w_dw, torch.float32, (k, k, cep), dev, 'w_dw')
     _check(f.b_dw, torch.float32, (cep,), dev, 'b_dw')
+    plan = tile_plan(args, b, ho, wo)
     d = torch.empty((b, ho, wo, cep), dtype=torch.bfloat16, device=dev)
-    sums = torch.empty((b, num_tiles(ho, wo), cep), dtype=torch.float32,
-                       device=dev)
+    sums = torch.empty((b, num_tiles(ho, wo, plan.th, plan.tw), cep),
+                       dtype=torch.float32, device=dev)
     pt, _ = same_pad_amounts(h, s, k)
     pl, _ = same_pad_amounts(w, s, k)
-    err = _lib().mbconv_expand_dw(
-        _ptr(x), _ptr(f.w_exp), _ptr(f.b_exp), _ptr(f.w_dw), _ptr(f.b_dw),
-        _ptr(d), _ptr(sums), b, h, w, cin, cep, k, s, pt, pl, _stream(dev))
+    err = _fn('mbconv_expand_dw')(
+        _ptr(x), _ptr(f.wexp_pack), _ptr(f.dw_pack), _ptr(f.w_dw),
+        _ptr(f.b_dw), _ptr(d), _ptr(sums), b, h, w, cin, kpad, cep, k, s, pt,
+        pl, plan.th, plan.tw, plan.nsplit, _stream(dev))
     _raise_on(err, 'mbconv_expand_dw')
     launches['mbconv_expand_dw'] += 1
     return d, sums
@@ -317,9 +547,9 @@ def se_gate(sums: torch.Tensor, f: FoldedMBConv, hw: int) -> torch.Tensor:
     _check(f.w_se2, torch.float32, (cs, cep), dev, 'w_se2')
     _check(f.b_se2, torch.float32, (cep,), dev, 'b_se2')
     gate = torch.empty((b, cep), dtype=torch.float32, device=dev)
-    err = _lib().mbconv_se(_ptr(sums), _ptr(f.w_se1), _ptr(f.b_se1),
-                           _ptr(f.w_se2), _ptr(f.b_se2), _ptr(gate), b, t,
-                           cep, cs, hw, _stream(dev))
+    err = _fn('mbconv_se')(_ptr(sums), _ptr(f.w_se1), _ptr(f.b_se1),
+                            _ptr(f.w_se2), _ptr(f.b_se2), _ptr(gate), b, t,
+                            cep, cs, hw, _stream(dev))
     _raise_on(err, 'mbconv_se')
     launches['mbconv_se'] += 1
     return gate
@@ -335,14 +565,23 @@ def project(d: torch.Tensor, gate: torch.Tensor, f: FoldedMBConv,
     dev = d.device
     _check(d, torch.bfloat16, (b, ho, wo, cep), dev, 'd')
     _check(gate, torch.float32, (b, cep), dev, 'gate')
-    _check(f.w_prj, torch.bfloat16, (cep, co), dev, 'w_prj')
+    if f.w_prj.shape[0] != cep:
+        raise ValueError(f'd has {cep} channels, w_prj {f.w_prj.shape[0]}')
+    _check(f.wprj_pack, torch.uint8, (cep * co * 2 + PROJECT_SLACK,), dev,
+           'wprj_pack')
     _check(f.b_prj, torch.float32, (co,), dev, 'b_prj')
     if skip is not None:
         _check(skip, torch.bfloat16, (b, ho, wo, co), dev, 'skip')
     out = torch.empty((b, ho, wo, co), dtype=torch.bfloat16, device=dev)
-    err = _lib().mbconv_project(_ptr(d), _ptr(gate), _ptr(f.w_prj),
-                                _ptr(f.b_prj), _ptr(skip), _ptr(out),
-                                b * ho * wo, ho * wo, cep, co, _stream(dev))
+    if ho * wo < PROJECT_BM:
+        raise ValueError(f'the project kernel needs at least {PROJECT_BM} '
+                         f'pixels per image, got {ho}x{wo}')
+    m = b * ho * wo
+    plan = project_plan(m, cep, co)
+    err = _fn('mbconv_project')(_ptr(d), _ptr(gate), _ptr(f.wprj_pack),
+                                _ptr(f.b_prj), _ptr(skip), _ptr(out), m,
+                                ho * wo, cep, co, plan.cols, plan.row_ctas,
+                                plan.nwg, plan.stages, _stream(dev))
     _raise_on(err, 'mbconv_project')
     launches['mbconv_project'] += 1
     return out
@@ -376,15 +615,18 @@ def _bound_ms(nbytes: float, ops: Mapping[str, float]) -> Tuple[float, str]:
 def bounds(args: BlockArgs, batch: int, h: int, w: int) -> dict:
     """Per-kernel least times (ms) for one block at this shape: each input
     read once and each output written once, at the block's own expanded
-    width Ce (the kernels' padding of Ce to CHANNEL_ALIGN is their cost,
-    not the function's), expand and project as bf16 GEMMs on the tensor
-    cores, the depthwise and SE in fp32."""
+    width Ce (the kernels' padding of Ce is their cost, not the
+    function's), expand and project as bf16 GEMMs on the tensor cores, the
+    depthwise and SE in fp32. The tile sums that (a) writes and (b) reads
+    are counted by the tile count of `tile_plan`, so these two bounds move
+    a little with the plan."""
     k, s, cin, co = (args.kernel_size, args.stride, args.input_filters,
                      args.output_filters)
     ho, wo = output_hw(h, w, args)
     ce = cin * args.expand_ratio
     cs = max(1, int(cin * args.se_ratio))
-    t = num_tiles(ho, wo)
+    plan = tile_plan(args, batch, ho, wo)
+    t = num_tiles(ho, wo, plan.th, plan.tw)
     x_b = batch * h * w * cin * 2
     d_b = batch * ho * wo * ce * 2
     out_b = batch * ho * wo * co * 2
