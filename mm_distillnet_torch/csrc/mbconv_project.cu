@@ -105,8 +105,13 @@ struct Cursor {
   int ti, kb, stage, phase;
 };
 
-template <int NT, int NWG>
-__global__ void __launch_bounds__(128 * NWG + 128)
+// KS is the most 16-wide K-steps a stage can hold: 8, or 2 for a block of
+// K <= 32 (a streaming pass: a tile is one short step). That variant keeps
+// few registers and leaves them be, so that several CTAs share an SM and
+// hide each other's per-tile chain; the other takes the producer
+// warpgroup's registers.
+template <int NT, int NWG, int KS>
+__global__ void __launch_bounds__(128 * NWG + 128, KS == 2 ? 2 : 1)
 project_kernel(const __grid_constant__ CUtensorMap d_map,
                const float* __restrict__ gate,
                const unsigned char* __restrict__ w_pack,
@@ -165,7 +170,7 @@ project_kernel(const __grid_constant__ CUtensorMap d_map,
   if (wg == NWG) {
     // the producer warpgroup gives its registers to the consumers; only its
     // first warp works
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (KS > 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid >= CONSUMERS + 32) return;
     // ---- producer warp: every copy goes through the copy engine onto the
     // stage's `full` barrier. Lane 0 announces the bytes and brings this
@@ -205,7 +210,9 @@ project_kernel(const __grid_constant__ CUtensorMap d_map,
   }
 
   // ---- consumer warpgroups
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(NWG == 1 ? 240 : 232));
+  if (KS > 2)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(NWG == 1 ? 240
+                                                                       : 232));
   const int warp = (tid >> 5) & 3;  // within the warpgroup
   const int g = lane >> 2;
   const int q = lane & 3;
@@ -228,14 +235,14 @@ project_kernel(const __grid_constant__ CUtensorMap d_map,
   // A fragments of a step: ldmatrix of the d tile, times the row's gate in
   // fp32, rounded to bf16. `full` says that the K-block has all BK values:
   // then the loop has no branch and the loads of all its steps overlap.
-  auto prep_steps = [&](const Cursor& c, uint32_t (&a)[BK / 16][4], int nks,
+  auto prep_steps = [&](const Cursor& c, uint32_t (&a)[KS][4], int nks,
                         auto full) {
     const unsigned char* stage = ring + c.stage * stage_b;
     const uint32_t a_src = smem_addr(stage) + lm_row;
     const float* gl = reinterpret_cast<const float*>(stage + g_lo);
     const float* gh = reinterpret_cast<const float*>(stage + g_hi);
 #pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
+    for (int ks = 0; ks < KS; ++ks) {
       if (decltype(full)::value || ks < nks) {
         ldmatrix_x4(a[ks], a_src + (ks >> 2) * BOX_BYTES +
                                ((((2 * ks + lm_hi) & 7) ^ lm_x) << 4));
@@ -254,7 +261,7 @@ project_kernel(const __grid_constant__ CUtensorMap d_map,
       }
     }
   };
-  auto prep = [&](const Cursor& c, uint32_t (&a)[BK / 16][4]) {
+  auto prep = [&](const Cursor& c, uint32_t (&a)[KS][4]) {
     if (c.kb == 0) {
       // the warpgroup's rows lie in image m0 / hw or the next one
       const int m0 = tile_row0(c) + wg * BM;
@@ -266,7 +273,7 @@ project_kernel(const __grid_constant__ CUtensorMap d_map,
     }
     const int nks = min(BK, cep - c.kb * BK) / 16;
     mbar_wait(full0 + 8 * c.stage, c.phase);
-    if (nks == BK / 16)
+    if (nks == KS)
       prep_steps(c, a, nks, std::true_type{});
     else
       prep_steps(c, a, nks, std::false_type{});
@@ -351,18 +358,18 @@ project_kernel(const __grid_constant__ CUtensorMap d_map,
 
   // one step: the wgmma of this step runs while the A fragments of the next
   // are made; then the stage goes back to the producer
-  auto step = [&](uint32_t (&cur)[BK / 16][4], uint32_t (&nxt)[BK / 16][4]) {
+  auto step = [&](uint32_t (&cur)[KS][4], uint32_t (&nxt)[KS][4]) {
     const int nks = min(BK, cep - mc.kb * BK) / 16;
     const uint64_t db = wgmma_desc(
         smem_addr(ring + mc.stage * stage_b + b_off), 128, nks * 256);
     wgmma_fence();
-    if (nks == BK / 16) {
+    if (nks == KS) {
 #pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks)
+      for (int ks = 0; ks < KS; ++ks)
         wgmma_rs<NT>(acc, cur[ks], db + ks * 16);
     } else {
 #pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks)
+      for (int ks = 0; ks < KS; ++ks)
         if (ks < nks) wgmma_rs<NT>(acc, cur[ks], db + ks * 16);
     }
     wgmma_commit();
@@ -388,7 +395,7 @@ project_kernel(const __grid_constant__ CUtensorMap d_map,
   };
 
   const int nsteps = my_tiles * nkb;
-  uint32_t a0[BK / 16][4], a1[BK / 16][4];
+  uint32_t a0[KS][4], a1[KS][4];
   prep(pc, a0);
   advance(pc);
   for (int t = 0; t < nsteps; t += 2) {
@@ -418,7 +425,7 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <int NT, int NWG>
+template <int NT, int NWG, int KS>
 cudaError_t launch_project(cudaStream_t stream, const __nv_bfloat16* d,
                            const float* gate, const unsigned char* w_pack,
                            const float* b_prj, const __nv_bfloat16* skip,
@@ -442,7 +449,7 @@ cudaError_t launch_project(cudaStream_t stream, const __nv_bfloat16* d,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  auto kern = project_kernel<NT, NWG>;
+  auto kern = project_kernel<NT, NWG, KS>;
   static int allowed = 0;  // this instantiation's dynamic shared memory limit
   if (smem > allowed) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -485,15 +492,18 @@ int mbconv_project(const void* d, const void* gate, const void* w_pack,
   auto sp = static_cast<const __nv_bfloat16*>(skip);
   auto op = static_cast<__nv_bfloat16*>(out);
   const int c = cols_per_cta;
+  // the streaming variant exists for the two narrowest accumulators
+  const bool streaming = cep <= 32 && c <= 32;
+#define MBCONV_LAUNCH(NT, NWG, KS)                                            \
+  launch_project<NT, NWG, KS>(st, dp, gp, wp, bp, sp, op, M, hw, cep, co, c, \
+                              row_ctas, stages)
 #define MBCONV_PROJECT(NT)                                                    \
   if (c <= NT)                                                                \
-    return (int)(nwg == 1                                                     \
-                     ? launch_project<NT, 1>(st, dp, gp, wp, bp, sp, op, M,   \
-                                             hw, cep, co, c, row_ctas,        \
-                                             stages)                          \
-                     : launch_project<NT, 2>(st, dp, gp, wp, bp, sp, op, M,   \
-                                             hw, cep, co, c, row_ctas,        \
-                                             stages));
+    return (int)(nwg == 1 ? MBCONV_LAUNCH(NT, 1, 8) : MBCONV_LAUNCH(NT, 2, 8));
+  if (streaming && c <= 16)
+    return (int)(nwg == 1 ? MBCONV_LAUNCH(16, 1, 2) : MBCONV_LAUNCH(16, 2, 2));
+  if (streaming)
+    return (int)(nwg == 1 ? MBCONV_LAUNCH(32, 1, 2) : MBCONV_LAUNCH(32, 2, 2));
   MBCONV_PROJECT(16)
   MBCONV_PROJECT(32)
   MBCONV_PROJECT(64)
@@ -502,6 +512,7 @@ int mbconv_project(const void* d, const void* gate, const void* w_pack,
   MBCONV_PROJECT(192)
   MBCONV_PROJECT(256)
 #undef MBCONV_PROJECT
+#undef MBCONV_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
