@@ -12,13 +12,14 @@ Phases, each of which fails the run on any error:
      kernel (expand+depthwise, SE, project) and the whole block are held
      against their plain PyTorch versions on the same inputs (bf16 outputs
      at rtol = atol = 2e-2 and correlation > 0.9999; the fp32 SE gate at
-     rtol = atol = 1e-4; the tile sums of two launches bit-equal) and timed
+     rtol = atol = 1e-4; the tile sums and the gates of two launches
+     bit-equal) and timed
      beside their bound: device time, CUDA events around replays of a CUDA
      graph of 20 launches, so that the host's launch rate (about 20 us a
      launch) does not floor the reading;
   4. slice: a D2 audio student (8 channels, 20 classes, seeded weights, BN
      statistics from one train-mode pass) served at 768 px through
-     make_serving_fn / serve_many (requests of 5, 8 and 13 images at batch
+     make_serving_fn / serve_many (requests of 8 and 13 images at batch
      8). With every launch count set to 0 just before and read just after,
      each kernel must have run 23 times per batch; outputs must be finite
      with at least one valid detection. The kernel plan must agree with
@@ -32,7 +33,30 @@ Phases, each of which fails the run on any error:
      and the backbone, and the backbone device time of the unfused bf16
      plan (a sequence of cuDNN and elementwise library calls per block;
      the port never routes through it) as a yardstick for the whole block.
-  5. report: one JSON line of kernel results, then as the last line
+  5. teachers: three seeded D2 teachers (rgb 3, thermal 1, depth 3 input
+     channels) and the seeded student (each with BN statistics from the
+     frames it will see) at 768 px, batch 8, config
+     fused_inference=True, on a SyntheticMultimodal of 16 frames with the
+     compact audio ingest (80 mel rows, stretched on the card). One call of
+     make_fused_teacher_fn's function must launch each kernel 69 times,
+     one call of make_predict_fn's 23 times (counts set to 0 just before,
+     read just after). The fused labels must be (8, 64, 5), finite, with
+     integer coordinates in [0, 768], label -1 and zero boxes on padded
+     rows and at least one valid row. Every block of every network is
+     held against its plain version on the activations it meets on this
+     path (the kernel phase's gates). The synthetic frames are smooth and
+     seeded detectors score whole neighbourhoods alike, so two bf16 paths
+     share few label rows to the pixel and an absolute gate on the labels
+     cannot hold: the kernel plan must agree with the plain-version plan
+     (correlation of the outputs; fused rows found within 1 px and at IoU
+     0.5, same label) at least as well as the unfused bf16 modules do.
+     evaluate() runs end to end, writes
+     both CSV files and returns finite numbers. Host ms, device ms,
+     launches and busy share of one teacher-function call and of one
+     evaluate batch, and evaluate()'s frames/s, are printed beside the
+     card's name and power limit.
+  6. report: one JSON line of kernel results (launches summed over the
+     serving and the teacher phases), then as the last line
      {"ok": true, "device": {...}}.
 
 Per-block numbers go to chiprun_out/chip_smoke.json. Without a CUDA device
@@ -42,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import json
 import re
 import statistics
@@ -53,6 +78,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from mm_distillnet_torch.config import config_from_dict, default_config
+from mm_distillnet_torch.data.base import (prediction_to_label_lut,
+                                           valid_prediction_ids)
+from mm_distillnet_torch.data.loader import collate
+from mm_distillnet_torch.data.synthetic import SyntheticMultimodal
+from mm_distillnet_torch.evaluation import (evaluate, make_fused_teacher_fn,
+                                            make_predict_fn)
 from mm_distillnet_torch.models import fused_forward
 from mm_distillnet_torch.models.efficientdet import EfficientDet
 from mm_distillnet_torch.models.efficientnet import (MBConvBlock,
@@ -60,11 +92,15 @@ from mm_distillnet_torch.models.efficientnet import (MBConvBlock,
 from mm_distillnet_torch.ops import cuda_build
 from mm_distillnet_torch.ops.boxes import pairwise_iou_xyxy
 from mm_distillnet_torch.ops import fused_mbconv as fm
+from mm_distillnet_torch.ops.postprocess import class_validity_table
+from mm_distillnet_torch.ops.resize import maybe_stretch_mel_axis
 from mm_distillnet_torch.serving import make_serving_fn, serve_many
 
 IMAGE_SIZE = 768
 IN_CHANNELS = 8
 NUM_CLASSES = 20
+TEACHERS = ('rgb', 'thermal', 'depth')
+BLOCKS = 23   # MBConv blocks of EfficientDet-D2: launches per forward
 SOURCES = {'mbconv_expand_dw': 'mm_distillnet_torch/csrc/mbconv_expand_dw.cu',
            'mbconv_se': 'mm_distillnet_torch/csrc/mbconv.cu',
            'mbconv_project': 'mm_distillnet_torch/csrc/mbconv_project.cu'}
@@ -130,9 +166,24 @@ def host_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _union_us(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    busy, last_end = 0.0, float('-inf')
+    for start, end in sorted(intervals):
+        if end > last_end:
+            busy += end - max(start, last_end)
+            last_end = end
+    return busy
+
+
 def device_breakdown(fn, reps: int = 3) -> dict:
-    """CUDA kernel time by name over `reps` calls of fn (torch.profiler),
-    per call. Without device events in the trace the result says so."""
+    """CUDA kernel time over `reps` calls of fn (torch.profiler), per call:
+    `busy_ms` is the time in which at least one kernel ran (the union of the
+    kernels' intervals), `kernel_ms` the sum of their durations, also by
+    name. A kernel launched as a programmatic dependent starts before the
+    kernel ahead of it ends and waits for it, so its duration overlaps that
+    kernel's and the sum exceeds the busy time. Without device events in
+    the trace the result says so."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -143,15 +194,19 @@ def device_breakdown(fn, reps: int = 3) -> dict:
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if busy_us == 0:
+    sum_us = sum(e.self_device_time_total for e in kernels)
+    if sum_us == 0:
         return {'measured': False}
+    busy_us = _union_us(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
     by_kernel = {n: sum(e.self_device_time_total for e in kernels
                         if pat.search(e.key)) / reps / 1e3
                  for n, pat in KERNEL_NAMES.items()}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     return {'measured': True,
-            'kernel_ms': busy_us / reps / 1e3,
+            'busy_ms': busy_us / reps / 1e3,
+            'kernel_ms': sum_us / reps / 1e3,
             'mbconv_kernel_ms': sum(by_kernel.values()),
             'by_kernel_ms': by_kernel,
             'launches': sum(e.count for e in kernels) / reps,
@@ -223,6 +278,9 @@ def kernel_phase(batch: int, seed: int, device):
         torch.cuda.synchronize()
         gate_ref = fm.se_gate_reference(sums, f, hw)
         torch.testing.assert_close(gate, gate_ref, rtol=1e-4, atol=1e-4)
+        if not torch.equal(gate, fm.se_gate(sums, f, hw)):
+            raise AssertionError(f'block {i}: two launches of se_gate '
+                                 'differ; its sums have a fixed order')
         err_b = float((gate - gate_ref).abs().max())
         out = fm.project(d, gate, f, skip)
         torch.cuda.synchronize()
@@ -274,19 +332,25 @@ def kernel_phase(batch: int, seed: int, device):
     return totals, rows
 
 
-def seeded_student(seed: int, batch: int, device) -> EfficientDet:
-    """D2 audio student from `seed`; BN running statistics from one no-grad
-    train-mode pass (momentum None: the pass's own statistics), so eval
+def seeded_detector(seed: int, batch: int, device,
+                    calib: torch.Tensor = None) -> EfficientDet:
+    """D2 detector from `seed`; BN running statistics from one no-grad
+    train-mode pass (momentum None: the pass's own statistics) over
+    `calib`, a batch (B, H, W, C) of the inputs it will see, or, without
+    one, over seeded noise with the audio student's 8 channels. So eval
     activations keep their scale through the depth."""
     torch.manual_seed(seed)
-    model = EfficientDet(NUM_CLASSES, 2, IN_CHANNELS).to(device)
+    in_channels = IN_CHANNELS if calib is None else calib.shape[-1]
+    model = EfficientDet(NUM_CLASSES, 2, in_channels).to(device)
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     for m in bns:
         m.reset_running_stats()
         m.momentum = None
-    g = torch.Generator(device=device).manual_seed(seed + 1)
-    x = torch.randn((batch, IMAGE_SIZE, IMAGE_SIZE, IN_CHANNELS),
-                    generator=g, device=device)
+    if calib is None:
+        g = torch.Generator(device=device).manual_seed(seed + 1)
+        calib = torch.randn((batch, IMAGE_SIZE, IMAGE_SIZE, in_channels),
+                            generator=g, device=device)
+    x = calib.float()
     model.train()
     with torch.no_grad():
         model(x)
@@ -336,7 +400,7 @@ def plain_blocks():
 
 
 def slice_phase(batch: int, seed: int, device):
-    model = seeded_student(seed, batch, device)
+    model = seeded_detector(seed, batch, device)
     sd = model.state_dict()
     t = time.perf_counter()
     serve = make_serving_fn(model, sd, IMAGE_SIZE, device=device)
@@ -348,14 +412,14 @@ def slice_phase(batch: int, seed: int, device):
     # the main path: every count 0 just before, read just after
     fm.reset_launches()
     first = serve(images[:batch])
-    requests = {n: serve_many(serve, images[:n], batch) for n in (5, 8, 13)}
+    requests = {n: serve_many(serve, images[:n], batch) for n in (8, 13)}
     torch.cuda.synchronize()
     counts = dict(fm.launches)
     n_batches = 1 + sum(-(-n // batch) for n in requests)
     for name, c in counts.items():
-        if c != 23 * n_batches:
+        if c != BLOCKS * n_batches:
             raise AssertionError(f'{name} launched {c} times, expected '
-                                 f'23 x {n_batches} batches')
+                                 f'{BLOCKS} x {n_batches} batches')
 
     for n, dets in requests.items():
         assert dets.boxes.shape == (n, 100, 4), dets.boxes.shape
@@ -407,13 +471,13 @@ def slice_phase(batch: int, seed: int, device):
 
     # serving time at the batch, input already on the card
     timing = {
-        'serve_ms': host_ms(lambda: serve(x), 5),
+        'serve_ms': host_ms(lambda: serve(x), 3),
         'serve_host_input_ms': host_ms(lambda: serve(images[:batch]), 3),
-        'forward_ms': host_ms(lambda: serve.forward(x), 5),
+        'forward_ms': host_ms(lambda: serve.forward(x), 3),
         'backbone_ms': host_ms(lambda: serve.forward.backbone(x), 5),
-        'unfused_serve_ms': host_ms(lambda: serve_f16(x), 5),
+        'unfused_serve_ms': host_ms(lambda: serve_f16(x), 3),
         'unfused_backbone_ms': host_ms(
-            lambda: serve_f16.forward.backbone(x), 5),
+            lambda: serve_f16.forward.backbone(x), 3),
     }
     timing['postprocess_ms'] = timing['serve_ms'] - timing['forward_ms']
     timing['images_per_s'] = batch * 1e3 / timing['serve_ms']
@@ -421,17 +485,17 @@ def slice_phase(batch: int, seed: int, device):
           flush=True)
     # where the device time goes: kernel time per call against the
     # unprofiled host time of the same call gives the device's busy share
-    profiled = {'serve': device_breakdown(lambda: serve(x)),
-                'forward': device_breakdown(lambda: serve.forward(x)),
+    profiled = {'serve': device_breakdown(lambda: serve(x), 2),
+                'forward': device_breakdown(lambda: serve.forward(x), 2),
                 'backbone': device_breakdown(
                     lambda: serve.forward.backbone(x)),
                 # the unfused bf16 plan's blocks: cuDNN convolutions and
                 # elementwise library calls, several per block
                 'unfused_backbone': device_breakdown(
-                    lambda: serve_f16.forward.backbone(x))}
+                    lambda: serve_f16.forward.backbone(x), 2)}
     for part, p in profiled.items():
         if p['measured']:
-            p['busy_share'] = p['kernel_ms'] / timing[f'{part}_ms']
+            p['busy_share'] = p['busy_ms'] / timing[f'{part}_ms']
         print(f'profile {part}: ' + json.dumps(
             {k: v for k, v in p.items() if k != 'top'}), flush=True)
     if profiled['serve']['measured']:
@@ -473,6 +537,256 @@ def slice_phase(batch: int, seed: int, device):
             'setup_s': setup_s, 'timing': timing, 'profile': profiled}
 
 
+def blockwise_check(name: str, backbone, x: torch.Tensor) -> list:
+    """Every MBConv block of a fused backbone, kernels against the plain
+    version on the same input, along the kernel plan's own forward from
+    the network input x (B, H, W, C). Returns the blocks' max |difference|.
+
+    The gates are the kernel phase's (rtol = atol = 2e-2, correlation >
+    0.9999), but at most one element in a million may lie outside, within
+    four times that tolerance: on image-like inputs a depthwise output can
+    be large (one bf16 ulp at 8 is 2^-4), and where one such value rounds
+    the other way its ulp passes through w_prj into an output near zero
+    (seen once in 18.9 million elements: 0.027 at an output of 0.26)."""
+    x = backbone.stem(x)
+    errs = []
+    for i, (_, args, f) in enumerate(backbone.plan):
+        x = x.to(torch.bfloat16).contiguous()
+        y = fm.mbconv_fused(x, f, args)
+        want = fm.mbconv_fused_reference(x, f, args).float()
+        diff = (y.float() - want).abs()
+        tol = 2e-2 + 2e-2 * want.abs()
+        outside = float((diff > tol).float().mean())
+        c = corr(y, want)
+        if outside > 1e-6 or bool((diff > 4 * tol).any()) or not c > 0.9999:
+            raise AssertionError(
+                f'{name} block {i} on its own activations: {outside:.3g} of '
+                f'the elements outside rtol = atol = 2e-2, max |difference| '
+                f'{float(diff.max()):.4g}, correlation {c}')
+        errs.append(float(diff.max()))
+        x = y
+    return errs
+
+
+def match_label_rows(ref: torch.Tensor, got: torch.Tensor,
+                     tol_px: float = 1.0, min_iou=None):
+    """(matched, total): ref's valid label rows [x1, y1, x2, y2, label]
+    that got has with the same label and every coordinate within tol_px
+    (or, with min_iou, an IoU of at least min_iou)."""
+    total = matched = 0
+    for r, g in zip(ref, got):
+        r = r[r[:, 4] != -1]
+        g = g[g[:, 4] != -1]
+        total += r.shape[0]
+        if r.shape[0] and g.shape[0]:
+            if min_iou is None:
+                near = ((r[:, None, :4] - g[None, :, :4]).abs().amax(-1)
+                        <= tol_px)
+            else:
+                near = pairwise_iou_xyxy(r[:, :4], g[:, :4]) >= min_iou
+            matched += int((near & (r[:, None, 4] == g[None, :, 4]))
+                           .any(1).sum())
+    return matched, total
+
+
+def check_fused_labels(fused: torch.Tensor, batch: int, max_gt: int) -> int:
+    """The fused pseudo-labels' contract; returns the number of valid rows."""
+    if tuple(fused.shape) != (batch, max_gt, 5):
+        raise AssertionError(f'fused labels have shape {tuple(fused.shape)}')
+    if not torch.isfinite(fused).all():
+        raise AssertionError('fused labels are not finite')
+    boxes, labels = fused[..., :4], fused[..., 4]
+    if not (torch.equal(boxes, boxes.round()) and boxes.min() >= 0
+            and boxes.max() <= IMAGE_SIZE):
+        raise AssertionError('fused boxes are not integers in [0, size]')
+    padded = labels == -1
+    if not (boxes[padded] == 0).all():
+        raise AssertionError('padded rows carry boxes')
+    if not ((labels >= 0) | padded).all():
+        raise AssertionError('a label is neither a class nor -1')
+    n_valid = int((~padded).sum())
+    if n_valid == 0:
+        raise AssertionError('no valid fused label')
+    return n_valid
+
+
+def expect_launches(what: str, per_kernel: int) -> dict:
+    counts = dict(fm.launches)
+    for name, c in counts.items():
+        if c != per_kernel:
+            raise AssertionError(f'{what}: {name} launched {c} times, '
+                                 f'expected {per_kernel}')
+    return counts
+
+
+def teacher_phase(batch: int, seed: int, device, card: str):
+    """Teachers through the kernels -> pseudo-labels -> evaluate()."""
+    frames = 2 * batch
+    config = default_config(
+        image_size=IMAGE_SIZE, batch_size=batch, synthetic_size=frames,
+        fused_inference=True, device_audio_resize=True, num_workers=4,
+        use_rgb=True, use_thermal=True, use_depth=True, eval_devices=1,
+        exp_name=str(OUT_DIR / 'eval_smoke'), rank=0)
+    dataset = SyntheticMultimodal(config, 'test')
+    samples = [dataset[i] for i in range(frames)]   # also fills its cache
+    if samples[0]['audio'].shape[0] != 80:
+        raise AssertionError('the compact audio ingest is off')
+    host = collate(samples[:batch])
+    inputs = {m: torch.as_tensor(host[m], device=device).to(torch.bfloat16)
+              for m in (*TEACHERS, 'audio')}
+    # each network's BN statistics come from the inputs it will see here
+    teachers = {m: seeded_detector(seed + 10 + i, batch, device, inputs[m])
+                for i, m in enumerate(TEACHERS)}
+    student = seeded_detector(
+        seed, batch, device, maybe_stretch_mel_axis(inputs['audio'],
+                                                    IMAGE_SIZE))
+    t_vars = {m: t.state_dict() for m, t in teachers.items()}
+    s_vars = student.state_dict()
+    vcd = dataset.valid_classes_dict
+    class_valid = torch.as_tensor(class_validity_table(
+        NUM_CLASSES, valid_prediction_ids(vcd)), device=device)
+    lut = torch.as_tensor(prediction_to_label_lut(vcd, NUM_CLASSES),
+                          device=device)
+    t = time.perf_counter()
+    teacher_fn = make_fused_teacher_fn(teachers, IMAGE_SIZE, config,
+                                       teacher_variables=t_vars,
+                                       device=device)
+    predict = make_predict_fn(student, IMAGE_SIZE, config, variables=s_vars,
+                              device=device)
+    setup_s = time.perf_counter() - t
+
+    # the main path: every count 0 just before, read just after
+    fm.reset_launches()
+    fused = teacher_fn(t_vars, inputs, class_valid, lut)
+    torch.cuda.synchronize()
+    counts = expect_launches('teacher function',
+                             BLOCKS * len(TEACHERS))
+    fm.reset_launches()
+    rows, _ = predict(s_vars, inputs['audio'], class_valid, lut)
+    torch.cuda.synchronize()
+    for name, c in expect_launches('predict function', BLOCKS).items():
+        counts[name] += c
+    max_gt = config.getint('max_gt')
+    n_valid = check_fused_labels(fused, batch, max_gt)
+    if tuple(rows.shape) != (batch, config.getint('max_detections'), 6) \
+            or not torch.isfinite(rows).all():
+        raise AssertionError(f'predict rows: shape {tuple(rows.shape)}')
+
+    # The synthetic frames are smooth, so a seeded detector's outputs vary
+    # little over an image (logits of standard deviation about 0.1) and
+    # whole neighbourhoods of anchors score alike, in bf16 steps of 2^-8:
+    # rounding differences are then of the signal's own size, and two bf16
+    # paths through the same weights correlate at 0.97-0.998 and share few
+    # label rows to the pixel. So the kernels are held to their plain
+    # versions block by block on this path's own activations (i), and the
+    # whole path to a yardstick: it must agree with the plain-version plan
+    # at least as well as another bf16 path, the unfused modules, does
+    # (ii, iii).
+    # (i) every block of every network on the activations it meets here
+    agree = {}
+    for m, model in {**teachers, 'audio': student}.items():
+        sd = model.state_dict()
+        forward = fused_forward.make_fused_predictor(model, sd, IMAGE_SIZE,
+                                                     device=device)
+        x = maybe_stretch_mel_axis(inputs[m], IMAGE_SIZE)
+        errs = blockwise_check(m, forward.backbone, x)
+        # (ii) the outputs: kernel plan and unfused bf16 modules against
+        # the plain-version plan
+        out_k = forward(x)
+        with plain_blocks():
+            out_p = forward(x)
+        out_u = fused_forward.make_fused_predictor(
+            model, sd, IMAGE_SIZE, plan_spec=f'flax:0-{BLOCKS - 1}',
+            device=device)(x)
+        agree[m] = {'kernel': agreement(out_k, out_p),
+                    'unfused_bf16': agreement(out_u, out_p),
+                    'block_max_abs_err': max(errs)}
+        print(f'{m}: against the plain-version plan: corr '
+              + json.dumps(agree[m]), flush=True)
+        for f in ('classification', 'regression', 'logits'):
+            k, u = agree[m]['kernel'][f], agree[m]['unfused_bf16'][f]
+            if not k >= u:
+                raise AssertionError(
+                    f'{m}: {f}: kernel plan corr {k} to the plain-version '
+                    f'plan is below the unfused bf16 modules\' {u}')
+
+    # (iii) the fused labels, by the same yardstick
+    unfused = make_fused_teacher_fn(
+        teachers, IMAGE_SIZE,
+        config_from_dict({**dict(config), 'fused_inference': False}),
+        teacher_variables=t_vars, device=device)
+    with plain_blocks():
+        fused_plain = teacher_fn(t_vars, inputs, class_valid, lut)
+    fused_unfused = unfused(t_vars, inputs, class_valid, lut)
+    check_fused_labels(fused_plain, batch, max_gt)
+    labels_match = {
+        'kernel': {'1px': match_label_rows(fused_plain, fused),
+                   'iou0.5': match_label_rows(fused_plain, fused,
+                                              min_iou=0.5)},
+        'unfused_bf16': {'1px': match_label_rows(fused_plain, fused_unfused),
+                         'iou0.5': match_label_rows(fused_plain,
+                                                    fused_unfused,
+                                                    min_iou=0.5)}}
+    print(f'fused labels: {n_valid} valid rows; found among the '
+          f'plain-version plan\'s: {json.dumps(labels_match)}', flush=True)
+    for how in ('1px', 'iou0.5'):
+        k, u = (labels_match[p][how][0] for p in ('kernel', 'unfused_bf16'))
+        if k < u:
+            raise AssertionError(
+                f'fused labels ({how}): the kernel plan matches {k} rows of '
+                f'the plain-version plan, the unfused bf16 path {u}')
+
+    def eval_batch():
+        predict(s_vars, inputs['audio'], class_valid, lut)
+        teacher_fn(t_vars, inputs, class_valid, lut)
+
+    parts = {'teacher_fn': lambda: teacher_fn(t_vars, inputs, class_valid,
+                                              lut),
+             'eval_batch': eval_batch}
+    timing = {}
+    for part, fn in parts.items():
+        ms = host_ms(fn, 3)
+        prof = device_breakdown(fn, 2)
+        timing[part] = {'host_ms': ms, **{k: v for k, v in prof.items()
+                                          if k != 'top'}}
+        if prof['measured']:
+            timing[part]['busy_share'] = prof['busy_ms'] / ms
+        print(f'{card} | {part} D2@768 batch {batch}: '
+              + json.dumps(timing[part]), flush=True)
+
+    # evaluate() end to end: both CSV files, finite numbers
+    fm.reset_launches()
+    table = evaluate({m: (teachers[m], t_vars[m]) for m in teachers},
+                     (student, s_vars), dataset, config, device=device)
+    torch.cuda.synchronize()
+    n_batches = frames // batch
+    for name, c in expect_launches(
+            'evaluate()',
+            n_batches * BLOCKS * (len(TEACHERS) + 1)).items():
+        counts[name] += c
+    if [r['modality'] for r in table] != ['ALL']:
+        raise AssertionError(f'testing points {table}')
+    numbers = {k: v for k, v in table[0].items()
+               if k not in ('exp_name', 'modality')}
+    if not all(np.isfinite(v) for v in numbers.values()):
+        raise AssertionError(f'evaluate() returned {table}')
+    exp = Path(config['exp_name'])
+    with open(exp / 'resources.0.csv', newline='') as f:
+        resources = next(csv.DictReader(f))
+    with open(exp / 'results.0.csv', newline='') as f:
+        if next(csv.DictReader(f))['modality'] != 'ALL':
+            raise AssertionError('results.0.csv lacks the ALL row')
+    if int(resources['Frames']) != frames:
+        raise AssertionError(f'evaluate() saw {resources["Frames"]} frames')
+    fps = float(resources['FramesPerSec'])
+    print(f'{card} | evaluate() on {frames} frames: {fps:.2f} frames/s, '
+          + json.dumps(numbers), flush=True)
+    return {'counts': counts, 'valid_fused_rows': n_valid,
+            'kernel_vs_plain_plan': {'corr': agree, 'labels': labels_match},
+            'setup_s': setup_s,
+            'timing': timing, 'evaluate': {'frames_per_s': fps, **numbers}}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     p.add_argument('--seed', type=int, default=0)
@@ -510,12 +824,14 @@ def main(argv=None) -> int:
 
     totals, rows = kernel_phase(a.batch, a.seed, device)
     served = slice_phase(a.batch, a.seed, device)
+    taught = teacher_phase(a.batch, a.seed, device, card)
 
     kernels = []
     for name, t in totals.items():
         kernels.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
-            'replaces': REPLACES, 'launches': served['counts'][name],
+            'replaces': REPLACES,
+            'launches': served['counts'][name] + taught['counts'][name],
             'max_abs_err': t['max_abs_err'], 'ms': t['ms'],
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': ('bytes' if t['bound_bytes_ms'] * 2 >= t['bound_ms']
@@ -526,7 +842,7 @@ def main(argv=None) -> int:
         'card': card, 'kind': kind, 'torch': torch.__version__,
         'cuda': torch.version.cuda, 'batch': a.batch, 'seed': a.seed,
         'build_s': build_s, 'kernels': kernels, 'blocks': rows,
-        'slice': served}, indent=1))
+        'slice': served, 'teachers': taught}, indent=1))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -9,5 +9,11 @@ Ported so far: the student's serving path — the EfficientDet forward
 (`models/`), the fused eval backbone whose MBConv blocks run as hand-written
 CUDA kernels (`models/fused_forward.py`, `ops/fused_mbconv.py`,
 `csrc/mbconv.cu`), decode + packed top-k + per-class NMS (`ops/`) and
-`serving.make_serving_fn` / `serve_many`.
+`serving.make_serving_fn` / `serve_many`; and the teacher half of
+distillation with the whole of evaluation: the compact-audio stretch
+(`ops/resize.py`), the teachers' eval forwards through the same kernels and
+their fusion into pseudo-labels (`distill/pseudo_labels.py`,
+`evaluation.make_fused_teacher_fn`), the config, the synthetic dataset and
+loader (`config.py`, `data/`), the metrics (`utils/metrics.py`) and
+`evaluation.evaluate`.
 """

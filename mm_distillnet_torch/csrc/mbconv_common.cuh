@@ -1,6 +1,8 @@
 // Device helpers shared by the MBConv kernels (Hopper, sm_90a): mbarrier and
-// named barriers, bulk and 16-byte asynchronous copies, ldmatrix, and wgmma
-// with its shared-memory descriptors. Thin wrappers of PTX; no policy here.
+// named barriers, bulk and 16-byte asynchronous copies, cluster barriers and
+// distributed shared memory, programmatic dependent launch, ldmatrix, and
+// wgmma with its shared-memory descriptors. Thin wrappers of PTX; no policy
+// here.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,6 +100,55 @@ __device__ __forceinline__ void cp_async_wait() {
 // asynchronous proxy (wgmma operands, bulk copies)
 __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- thread-block clusters ------------------------------------------------
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+// The cluster's barrier, split in two: every thread of every CTA arrives and
+// later waits. Stores made before the arrive, into any CTA's shared memory,
+// are visible to every thread after its wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the address of this CTA's shared-memory location `addr` in CTA `rank` of
+// the cluster (distributed shared memory)
+__device__ __forceinline__ uint32_t map_shared_rank(uint32_t addr,
+                                                    uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void st_shared_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+// ---- programmatic dependent launch ----------------------------------------
+// In a kernel launched with programmatic stream serialization: waits until
+// the kernel before it in the stream has ended and its stores are visible.
+// Without that attribute it returns at once.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+// Lets the next kernel in the stream, if it was launched with programmatic
+// stream serialization, start once every CTA of this grid has come here or
+// ended; what it runs before its own griddep_wait overlaps this grid.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // ---- ldmatrix -------------------------------------------------------------

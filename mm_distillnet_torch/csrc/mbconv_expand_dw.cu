@@ -169,6 +169,9 @@ expand_dw_kernel(const __nv_bfloat16* __restrict__ x,
                  int pad_t, int pad_l, int tiles_x, int chunks_per_cta) {
   using G = Geom<K, S, TH, TW>;
   extern __shared__ __align__(128) unsigned char smem[];
+  // kernel (b) may come up beside this grid's last CTAs: it stages its
+  // weights and then waits for the whole of this grid
+  griddep_launch_dependents();
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   // the warpgroup's index by a shuffle, so that the compiler knows it to be
@@ -407,6 +410,7 @@ dw_only_kernel(const __nv_bfloat16* __restrict__ x,
   constexpr int HPW = (TW - 1) * S + K;
   constexpr int NSTRIP = TH * (TW / 8);
   extern __shared__ __align__(128) unsigned char smem[];
+  griddep_launch_dependents();  // as in expand_dw_kernel
   const int px = cep * 2 + 16;  // bytes per pixel of the input tile
   unsigned char* e = smem;
   unsigned char* stg = e + round_up(HPH * HPW * px, 128);

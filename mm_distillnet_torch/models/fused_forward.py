@@ -101,11 +101,16 @@ class FusedBackbone:
             spatial = -(-spatial // args.stride)
 
     @torch.no_grad()
-    def __call__(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """x (B, H, W, C) -> NHWC features [P2, P3, P4, P5]."""
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, H, W, C) -> the first block's input (B, H/2, W/2, C0)."""
         x = nchw(x.to(self.device, self.dtype))
         x = F.conv2d(pad_same_nchw(x, 2, 3), self.stem_weight, stride=2)
-        x = nhwc(swish(x + self.stem_bias[:, None, None])).contiguous()
+        return nhwc(swish(x + self.stem_bias[:, None, None])).contiguous()
+
+    @torch.no_grad()
+    def __call__(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """x (B, H, W, C) -> NHWC features [P2, P3, P4, P5]."""
+        x = self.stem(x)
 
         feature_maps = []
         last_x = None

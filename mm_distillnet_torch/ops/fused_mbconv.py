@@ -15,7 +15,12 @@ VMEM. On Hopper the block is three kernels:
                    channel sums. On-chip work bounds it (the swish of the
                    recomputed halo, the depthwise FMAs), not its bytes;
   (b) `se_gate`    csrc/mbconv.cu. Tile sums -> mean -> SE GEMVs -> fp32
-                   gate; latency-bound;
+                   gate. Latency-bound: a thread-block cluster per image
+                   (`se_plan`: the tiles or the channels split over its
+                   CTAs) exchanges partial sums through distributed shared
+                   memory and adds them in rank order; launched as a
+                   programmatic dependent of (a), it stages its weights
+                   (`pack_se`) before (a) has ended;
   (c) `project`    csrc/mbconv_project.cu. Tiles of 64 rows per consumer
                    warpgroup x up to 256 output channels (`project_plan`);
                    a producer warp brings d (TMA boxes of a tensor map),
@@ -25,8 +30,8 @@ VMEM. On Hopper the block is three kernels:
                    in, and each warp's own instruction chain, bound it.
 
 The kernels read the weights in layouts made once at fold time
-(`pack_expand`, `pack_project`): K-major 8x8 core matrices as wgmma reads
-them from shared memory, cut into the pieces one copy brings in. What
+(`pack_expand`, `pack_project`, `pack_se`): K-major 8x8 core matrices as
+wgmma reads them from shared memory, cut into the pieces one copy brings in. What
 bounds each kernel and why its design is so is noted in its CUDA source.
 
 Each wrapper runs its kernel for a CUDA tensor and counts the launch in
@@ -64,6 +69,11 @@ PROJECT_WIDTHS = (16, 32, 64, 96, 128, 192, 256)   # (c)'s accumulator widths
 # zero bytes behind pack_project's last value: the widest piece a CTA copies
 PROJECT_SLACK = PROJECT_WIDTHS[-1] * PROJECT_BK * 2
 NUM_SMS = 132
+SE_PACK_RANKS = 8         # the cluster that `pack_se` lays w_se1, w_se2 out for
+# kernel (b): from this many bytes of SE weights on, the cluster splits the
+# channels; below, the tiles, each CTA reading about this many bytes of sums
+SE_SPLIT_CHANNELS_BYTES = 16 * 1024
+SE_TILE_BYTES_PER_RANK = 16 * 1024
 MAX_SMEM_BYTES = 232448   # dynamic shared memory one H100 block may use
 
 launches = {'mbconv_expand_dw': 0, 'mbconv_se': 0, 'mbconv_project': 0}
@@ -86,6 +96,7 @@ class FoldedMBConv(NamedTuple):
     wexp_pack: Optional[torch.Tensor] = None   # uint8, chunks of w_exp+b_exp
     dw_pack: Optional[torch.Tensor] = None     # uint8, chunks of w_dw+b_dw
     wprj_pack: Optional[torch.Tensor] = None   # uint8, K-blocks of w_prj
+    se_pack: Optional[torch.Tensor] = None     # f32, per-CTA w_se1 + w_se2
 
 
 def _round_up(v: int, m: int) -> int:
@@ -134,7 +145,8 @@ def fold_mbconv(sd: Mapping[str, torch.Tensor], args: BlockArgs,
     if w_exp is not None:
         wexp_pack, dw_pack = pack_expand(w_exp, b_exp, w_dw, b_dw)
     tensors = (w_exp, b_exp, w_dw, b_dw, w_se1, b_se1, w_se2, b_se2,
-               w_prj, b, wexp_pack, dw_pack, pack_project(w_prj))
+               w_prj, b, wexp_pack, dw_pack, pack_project(w_prj),
+               pack_se(w_se1, w_se2))
     return FoldedMBConv(*(None if t is None else t.contiguous().to(device)
                           for t in tensors))
 
@@ -232,6 +244,32 @@ def unpack_project(wprj_pack: torch.Tensor, cep: int, co: int) -> torch.Tensor:
                                         bk).t())
         at += co * bk * 2
     return torch.cat(rows)
+
+
+def se_channels_per_rank(cep: int, ranks: int) -> int:
+    """Channels of one CTA where kernel (b) splits them over `ranks` CTAs."""
+    return _round_up(-(-cep // ranks), 4)
+
+
+def pack_se(w_se1: torch.Tensor, w_se2: torch.Tensor) -> torch.Tensor:
+    """Kernel (b)'s weights for a cluster of SE_PACK_RANKS CTAs that split
+    the channels: for each rank one record, its columns of w_se1 (Cs, per)
+    then of w_se2 (Cs, per), zero padded to per = se_channels_per_rank, so
+    that one copy brings a CTA all it needs."""
+    cs, cep = w_se1.shape
+    per = se_channels_per_rank(cep, SE_PACK_RANKS)
+    both = _pad_cols(torch.stack([w_se1, w_se2]), SE_PACK_RANKS * per)
+    return (both.reshape(2, cs, SE_PACK_RANKS, per).permute(2, 0, 1, 3)
+            .contiguous().reshape(-1))
+
+
+def unpack_se(se_pack: torch.Tensor, cs: int, cep: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of pack_se: (w_se1, w_se2), each (Cs, CeP)."""
+    per = se_channels_per_rank(cep, SE_PACK_RANKS)
+    both = (se_pack.reshape(SE_PACK_RANKS, 2, cs, per).permute(1, 2, 0, 3)
+            .reshape(2, cs, SE_PACK_RANKS * per)[..., :cep])
+    return both[0], both[1]
 
 
 # ---------------------------------------------------------------------------
@@ -366,6 +404,79 @@ def project_plan(m: int, cep: int, co: int) -> ProjectPlan:
     raise ValueError(f'no ring of the project kernel fits Co = {co}')
 
 
+class SePlan(NamedTuple):
+    """Kernel (b)'s launch at one shape: the CTAs of an image's cluster, what
+    they share out (the tiles of the reduction, or the channels), how many
+    of those each CTA owns, and the threads of a CTA."""
+    ranks: int
+    split_tiles: bool
+    per_rank: int
+    threads: int
+
+
+def se_smem_bytes(cep: int, cs: int, plan: SePlan) -> int:
+    """Shared memory of one CTA of kernel (b) (csrc/mbconv.cu `se_layout`):
+    the mbarrier, the staged rows of w_se1 and w_se2 (whole, or this CTA's
+    channels), one float4 per thread for the reduction, the parts received
+    from every CTA of the cluster, the mean, b_se2, b_se1 and s1."""
+    ldw = cep if plan.split_tiles else plan.per_rank
+    pw = cep if plan.split_tiles else cs
+    floats = (4 + 2 * cs * ldw + plan.threads * 4
+              + _round_up(plan.ranks * pw, 4) + 2 * ldw
+              + 2 * _round_up(cs, 4))
+    return floats * 4
+
+
+def make_se_plan(n_tiles: int, cep: int, cs: int, ranks: int,
+                 split_tiles: bool, threads: int) -> SePlan:
+    """The plan with these choices: tiles, or channels in multiples of 4,
+    dealt evenly over the CTAs. Raises for what the kernel does not take."""
+    if ranks not in (1, 2, 4, 8):
+        raise ValueError(f'a cluster of {ranks} CTAs is not portable')
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f'{threads} threads per CTA')
+    if cep % 16:
+        raise ValueError(f'the SE kernel reads 16 channels at a time; got '
+                         f'{cep}')
+    if split_tiles:
+        per_rank = -(-n_tiles // ranks)
+        columns = cep // 4
+    else:
+        per_rank = se_channels_per_rank(cep, ranks)
+        columns = per_rank // 4
+        if 2 * cs * per_rank * 4 >= 1 << 20:
+            raise ValueError('a CTA\'s weight slice exceeds what one '
+                             'mbarrier counts')
+    if columns > threads:
+        raise ValueError(f'{threads} threads cannot hold {columns} float4 '
+                         'columns')
+    plan = SePlan(ranks, split_tiles, per_rank, threads)
+    smem = se_smem_bytes(cep, cs, plan)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f'the SE kernel would need {smem} B of shared '
+                         'memory')
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def se_plan(n_tiles: int, cep: int, cs: int) -> SePlan:
+    """A static choice by shape, from a sweep over every plan at the D2@768
+    shapes (scripts/torch_sweep_se_plan.py). Blocks whose SE weights are the
+    larger part of the bytes split the channels over a cluster of 8, each
+    CTA staging its record of `pack_se` in one copy; narrow blocks split the
+    tiles, over as many CTAs as leaves each about 16 KB of tile sums to
+    read. Few threads start and synchronise faster; the widest blocks need
+    more for their GEMVs."""
+    if 2 * cs * cep * 4 >= SE_SPLIT_CHANNELS_BYTES:
+        threads = 256 if cep < 1024 else 512 if cep < 2048 else 1024
+        return make_se_plan(n_tiles, cep, cs, SE_PACK_RANKS, False, threads)
+    ranks = 1
+    while ranks < 8 and n_tiles * cep * 4 > ranks * SE_TILE_BYTES_PER_RANK \
+            and n_tiles >= 2 * ranks:
+        ranks *= 2
+    return make_se_plan(n_tiles, cep, cs, ranks, True, 256)
+
+
 def check_kernel_fits(args: BlockArgs) -> None:
     """Raise for a block the CUDA kernels cannot take."""
     if args.kernel_size not in (3, 5) or args.stride not in (1, 2):
@@ -450,7 +561,8 @@ _I = ctypes.c_int
 # entry point -> (its source in csrc/, its C argument types)
 _SIGNATURES = {
     'mbconv_expand_dw': ('mbconv_expand_dw', [_P] * 7 + [_I] * 13 + [_P]),
-    'mbconv_se': ('mbconv', [_P] * 6 + [_I] * 5 + [_P]),
+    'mbconv_se': ('mbconv', [_P] * 7 + [_I] * 9 + [_P]),
+    'mbconv_se_max_clusters': ('mbconv', [_I] * 7),
     'mbconv_project': ('mbconv_project', [_P] * 6 + [_I] * 8 + [_P]),
 }
 _FUNCTIONS: dict = {}
@@ -534,22 +646,54 @@ def expand_dw(x: torch.Tensor, f: FoldedMBConv, args: BlockArgs
     return d, sums
 
 
-def se_gate(sums: torch.Tensor, f: FoldedMBConv, hw: int) -> torch.Tensor:
-    """Kernel (b): per-tile sums (B, T, CeP) -> gate (B, CeP) f32."""
+@functools.lru_cache(maxsize=None)
+def _check_clusters_fit(b: int, cep: int, cs: int, plan: SePlan) -> None:
+    """Once per launch shape: the card must hold at least one cluster of
+    kernel (b) at this plan, or the launch would fail."""
+    n = _fn('mbconv_se_max_clusters')(b, cep, cs, plan.ranks,
+                                      int(plan.split_tiles), plan.per_rank,
+                                      plan.threads)
+    if n < 1:
+        raise RuntimeError(
+            f'the card holds no cluster of the SE kernel at {plan} '
+            f'(cudaOccupancyMaxActiveClusters: {n})')
+
+
+def se_gate(sums: torch.Tensor, f: FoldedMBConv, hw: int,
+            plan: Optional[SePlan] = None) -> torch.Tensor:
+    """Kernel (b): per-tile sums (B, T, CeP) -> gate (B, CeP) f32. `plan`
+    defaults to `se_plan` of the shape."""
     if sums.device.type == 'cpu':
         return se_gate_reference(sums, f, hw)
     b, t, cep = sums.shape
     cs = f.w_se1.shape[0]
     dev = sums.device
+    if plan is None:
+        plan = se_plan(t, cep, cs)
     _check(sums, torch.float32, (b, t, cep), dev, 'sums')
     _check(f.w_se1, torch.float32, (cs, cep), dev, 'w_se1')
     _check(f.b_se1, torch.float32, (cs,), dev, 'b_se1')
     _check(f.w_se2, torch.float32, (cs, cep), dev, 'w_se2')
     _check(f.b_se2, torch.float32, (cep,), dev, 'b_se2')
+    for name in ('w_se1', 'w_se2'):
+        if getattr(f, name).data_ptr() % 16:
+            raise ValueError(f'{name} must start on a 16-byte boundary')
+    packed = None
+    if plan.ranks == SE_PACK_RANKS and not plan.split_tiles:
+        packed = f.se_pack
+        if packed is None:
+            raise ValueError('folded weights lack se_pack')
+        _check(packed, torch.float32, (SE_PACK_RANKS * 2 * cs * plan.per_rank,),
+               dev, 'se_pack')
+        if packed.data_ptr() % 16:
+            raise ValueError('se_pack must start on a 16-byte boundary')
+    _check_clusters_fit(b, cep, cs, plan)
     gate = torch.empty((b, cep), dtype=torch.float32, device=dev)
     err = _fn('mbconv_se')(_ptr(sums), _ptr(f.w_se1), _ptr(f.b_se1),
-                            _ptr(f.w_se2), _ptr(f.b_se2), _ptr(gate), b, t,
-                            cep, cs, hw, _stream(dev))
+                            _ptr(f.w_se2), _ptr(f.b_se2), _ptr(packed),
+                            _ptr(gate), b, t, cep, cs, hw, plan.ranks,
+                            int(plan.split_tiles), plan.per_rank,
+                            plan.threads, _stream(dev))
     _raise_on(err, 'mbconv_se')
     launches['mbconv_se'] += 1
     return gate

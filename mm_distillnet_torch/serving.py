@@ -7,9 +7,9 @@ default, models/fused_forward.py) then decode + packed top-k + per-class
 NMS (ops/postprocess.py). `serve_many` chunks any number of images into
 the predictor's batch, zero-pads the tail and returns the real rows.
 
-Not ported yet: the compact-audio ingest (an input height other than
-`image_size`, stretched on the device in the reference) raises, and there
-is no export/load of a predictor.
+A compact-audio batch (80 mel rows instead of `image_size`) is stretched
+on the device first (ops/resize.py); any other height raises. Not ported
+yet: the export/load of a predictor.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from .models.fused_forward import make_fused_predictor
 from .ops.anchors import anchor_table
 from .ops.postprocess import (Detections, class_validity_table,
                               postprocess_detections)
+from .ops.resize import maybe_stretch_mel_axis
 
 __all__ = ['make_serving_fn', 'serve_many']
 
@@ -59,11 +60,7 @@ def make_serving_fn(model, state_dict, image_size: int, *,
     @torch.no_grad()
     def predict(x) -> Detections:
         x = torch.as_tensor(x, device=dev)
-        if x.shape[-3] != image_size:
-            raise ValueError(
-                f'input height {x.shape[-3]} != image_size {image_size} '
-                '(the compact-audio stretch is not ported)')
-        out = forward(x)
+        out = forward(maybe_stretch_mel_axis(x, image_size))
         return postprocess_detections(
             out.classification, out.regression, anchors, class_valid,
             image_size=image_size, conf_threshold=conf_threshold,

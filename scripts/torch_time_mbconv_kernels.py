@@ -8,8 +8,9 @@ PATH is the root of a checkout of the port (default: the one this script
 lies in), so that two commits can be timed in turns inside one run:
 unpack the other with `git archive <commit> | tar -x -C PATH`. Each kernel
 is timed as CUDA events around three replays of a CUDA graph of 20
-launches, which leaves the host's launch rate out. Needs one NVIDIA GPU
-and nvcc. Prints the card, one JSON line per block and one of sums.
+launches, which leaves the host's launch rate out; `block` is the three in
+a row, 20 x [(a), (b), (c)], so it also holds what their boundaries cost.
+Needs one NVIDIA GPU and nvcc. Prints the card, one JSON line per block and one of sums.
 """
 import argparse
 import json
@@ -56,7 +57,7 @@ def main() -> int:
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip(), '|', a.tree)
     device = torch.device('cuda', 0)
-    sums = {'a': 0.0, 'b': 0.0, 'c': 0.0}
+    sums = {'a': 0.0, 'b': 0.0, 'c': 0.0, 'block': 0.0}
     h = 384
     for i, args in enumerate(expand_block_args(2)):
         torch.manual_seed(a.seed + i)
@@ -71,7 +72,8 @@ def main() -> int:
         row = {'block': i,
                'a': graph_ms(lambda: fm.expand_dw(x, f, args)),
                'b': graph_ms(lambda: fm.se_gate(tile_sums, f, hw)),
-               'c': graph_ms(lambda: fm.project(d, gate, f, skip))}
+               'c': graph_ms(lambda: fm.project(d, gate, f, skip)),
+               'block': graph_ms(lambda: fm.mbconv_fused(x, f, args))}
         for k in sums:
             sums[k] += row[k]
         print(json.dumps({k: round(v, 5) for k, v in row.items()}))

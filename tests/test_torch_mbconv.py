@@ -1,6 +1,8 @@
 """MBConv: the port's unfused block and the fused block's plain version
 against the reference (flax MBConvBlock and the Pallas kernel in interpret
-mode), plus the CUDA kernels against the plain version on a card."""
+mode), and the Python mirrors of the CUDA kernels' plans and layouts. The
+kernels themselves are held against their plain versions on a card by
+tests/test_torch_cuda_kernels.py."""
 import functools
 
 import jax.numpy as jnp
@@ -12,7 +14,8 @@ from mm_distillnet_tpu.models.efficientnet import MBConvBlock as JaxMBConv
 from mm_distillnet_tpu.ops import pallas_mbconv
 from mm_distillnet_torch.convert.weights import state_dict_from_flax
 from mm_distillnet_torch.models.efficientnet import (BlockArgs, MBConvBlock,
-                                                     expand_block_args)
+                                                     expand_block_args,
+                                                     se_squeeze_width)
 from mm_distillnet_torch.ops import fused_mbconv as fm
 
 from .test_torch_helpers import (as_jax_args, corr, filled_variables,
@@ -252,16 +255,177 @@ def test_kernels_refuse_shapes_they_cannot_take(args, match):
         fm.check_kernel_fits(args)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('args,size', CASES, ids=IDS)
-def test_cuda_kernels_match_plain_version(args, size):
-    if not torch.cuda.is_available():
-        pytest.skip('needs an NVIDIA GPU and nvcc')
-    x, v, _ = _block(args, size)
-    folded = fm.fold_mbconv(state_dict_from_flax(v), args, 'cuda')
-    xb = torch.from_numpy(x).to('cuda', torch.bfloat16)
-    got = fm.mbconv_fused(xb, folded, args)
-    torch.cuda.synchronize()
-    want = fm.mbconv_fused_reference(xb, folded, args)
-    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                               atol=2e-2)
+def _se_shapes(coef, size, batch):
+    """(n_tiles, CeP, Cs) of kernel (b) for every block of EfficientNet
+    `coef` at this input size and batch."""
+    out = []
+    for args, _, ho in _shapes(coef, size):
+        ce = args.input_filters * args.expand_ratio
+        align = fm.CHUNK if args.expand_ratio != 1 else fm.NOEXPAND_ALIGN
+        plan = fm.tile_plan(args, batch, ho, ho)
+        out.append((fm.num_tiles(ho, ho, plan.th, plan.tw),
+                    -(-ce // align) * align, se_squeeze_width(args)))
+    return out
+
+
+def _se_rank_ranges(plan, n_tiles, cep):
+    """Per CTA of kernel (b)'s cluster: (tiles, channels) it reduces and the
+    channels whose gates it writes, as csrc/mbconv.cu cuts them."""
+    out = []
+    for r in range(plan.ranks):
+        if plan.split_tiles:
+            t0 = min(r * plan.per_rank, n_tiles)
+            per = -(-cep // plan.ranks)
+            c0 = min(r * per, cep)
+            out.append((range(t0, min(t0 + plan.per_rank, n_tiles)),
+                        range(0, cep), range(c0, min(c0 + per, cep))))
+        else:
+            c0 = min(r * plan.per_rank, cep)
+            own = range(c0, min(c0 + plan.per_rank, cep))
+            out.append((range(0, n_tiles), own, own))
+    return out
+
+
+@pytest.mark.parametrize('coef,size,batch', [(2, 768, 8), (0, 512, 8),
+                                             (-1, 128, 2)],
+                         ids=['d2_768', 'd0_512', 'tiny_128'])
+def test_se_plan_covers_everything_once_and_fits(coef, size, batch):
+    """Every (tile, channel) sum is reduced by exactly one CTA, every gate
+    written by exactly one, and the shared-memory mirror stays inside what
+    a block may use, for every block at its plan."""
+    for t, cep, cs in _se_shapes(coef, size, batch):
+        plan = fm.se_plan(t, cep, cs)
+        assert plan.ranks in (1, 2, 4, 8) and plan.threads % 32 == 0
+        assert 32 <= plan.threads <= 1024
+        assert fm.se_smem_bytes(cep, cs, plan) <= fm.MAX_SMEM_BYTES
+        reduced = np.zeros((t, cep), np.int64)
+        written = np.zeros(cep, np.int64)
+        for tiles, chans, gates in _se_rank_ranges(plan, t, cep):
+            reduced[tiles.start:tiles.stop, chans.start:chans.stop] += 1
+            written[gates.start:gates.stop] += 1
+            assert chans.start % 4 == 0 and len(chans) % 4 == 0
+            assert len(chans) // 4 <= plan.threads
+        assert (reduced == 1).all() and (written == 1).all()
+        if not plan.split_tiles:   # one bulk copy, counted by one mbarrier
+            assert 2 * cs * plan.per_rank * 4 < 1 << 20
+            assert plan.ranks == fm.SE_PACK_RANKS
+            assert plan.per_rank == fm.se_channels_per_rank(cep, plan.ranks)
+
+
+def _se_gate_mirror(sums, f, hw, plan):
+    """Kernel (b)'s sums in its own order (csrc/mbconv.cu): per CTA, thread
+    group g adds the tiles g, g + G, ... with four running sums; P lanes a
+    channel each add every P-th group, then a butterfly; the CTAs' parts
+    are added in rank order."""
+    b, t, cep = sums.shape
+    cs = f.w_se1.shape[0]
+    nt = plan.threads
+    parts = []
+    for tiles, chans, _ in _se_rank_ranges(plan, t, cep):
+        rn, tn = len(chans), len(tiles)
+        x = sums[:, tiles.start:tiles.stop, chans.start:chans.stop]
+        if rn == 0:
+            parts.append((chans, torch.zeros((b, 0))))
+            continue
+        groups = max(1, min(tn, nt // (rn // 4)))
+        red = []
+        for g in range(groups):
+            seq = list(range(g, tn, groups))
+            a = [torch.zeros((b, rn)) for _ in range(4)]
+            k = 0
+            while k + 3 < len(seq):
+                for u in range(4):
+                    a[u] = a[u] + x[:, seq[k + u]]
+                k += 4
+            for i in seq[k:]:
+                a[0] = a[0] + x[:, i]
+            red.append((a[0] + a[1]) + (a[2] + a[3]))
+        lanes = 1
+        while lanes < 32 and rn * lanes * 2 <= nt and lanes * 2 <= groups:
+            lanes *= 2
+        s = []
+        for p in range(lanes):
+            acc = torch.zeros((b, rn))
+            for g in range(p, groups, lanes):
+                acc = acc + red[g]
+            s.append(acc)
+        off = lanes // 2
+        while off:
+            s = [s[p] + s[p ^ off] for p in range(lanes)]
+            off //= 2
+        parts.append((chans, s[0]))
+    if plan.split_tiles:
+        total = torch.zeros((b, cep))
+        for _, part in parts:
+            total = total + part
+        pre = (total / hw) @ f.w_se1.t()
+    else:
+        pre = torch.zeros((b, cs))
+        for chans, part in parts:
+            pre = pre + (part / hw) @ f.w_se1[:, chans.start:chans.stop].t()
+    s1 = pre + f.b_se1
+    s1 = s1 * torch.sigmoid(s1)
+    return torch.sigmoid(s1 @ f.w_se2 + f.b_se2)
+
+
+@pytest.mark.parametrize('coef,size,batch', [(2, 768, 8), (0, 512, 8),
+                                             (-1, 128, 2)],
+                         ids=['d2_768', 'd0_512', 'tiny_128'])
+def test_se_partial_sum_order_agrees_with_plain_version(coef, size, batch):
+    """The order in which kernel (b) adds (mirrored in torch) gives the
+    plain version's gate to 1e-6, for every distinct shape at its plan and
+    at one plan of the other split."""
+    rng = np.random.default_rng(coef + 5)
+    for t, cep, cs in sorted(set(_se_shapes(coef, size, batch))):
+        sums = torch.from_numpy(
+            rng.standard_normal((2, t, cep)).astype(np.float32) * 8.0)
+        w = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                              * 0.2)
+             for shape in ((cs, cep), (cs,), (cs, cep), (cep,))]
+        f = fm.FoldedMBConv(None, None, None, None, *w, None, None)
+        hw = 16 * t
+        want = fm.se_gate_reference(sums, f, hw)
+        chosen = fm.se_plan(t, cep, cs)
+        plans = [chosen]
+        try:   # the widest blocks cannot stage whole weight matrices
+            plans.append(fm.make_se_plan(t, cep, cs, min(4, t),
+                                         not chosen.split_tiles, 512))
+        except ValueError:
+            assert 2 * cs * cep * 4 > fm.MAX_SMEM_BYTES
+        for plan in plans:
+            got = _se_gate_mirror(sums, f, hw, plan)
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize('cs,cep', [(22, 528), (4, 96), (88, 2112), (2, 48)])
+def test_se_weight_pack_round_trips(cs, cep):
+    """`pack_se` decodes to w_se1 and w_se2 bit for bit, and a CTA's record
+    is its own columns of both, zero padded."""
+    g = torch.Generator().manual_seed(cs)
+    w1 = torch.randn((cs, cep), generator=g)
+    w2 = torch.randn((cs, cep), generator=g)
+    pack = fm.pack_se(w1, w2)
+    per = fm.se_channels_per_rank(cep, fm.SE_PACK_RANKS)
+    assert per % 4 == 0 and per * fm.SE_PACK_RANKS >= cep
+    assert pack.numel() == fm.SE_PACK_RANKS * 2 * cs * per
+    a, b = fm.unpack_se(pack, cs, cep)
+    assert torch.equal(a, w1) and torch.equal(b, w2)
+    records = pack.reshape(fm.SE_PACK_RANKS, 2, cs, per)
+    for r in (0, fm.SE_PACK_RANKS - 1):
+        n = max(0, min(per, cep - r * per))
+        assert torch.equal(records[r, 0, :, :n], w1[:, r * per:r * per + n])
+        assert torch.equal(records[r, 1, :, :n], w2[:, r * per:r * per + n])
+        assert (records[r, :, :, n:] == 0).all()
+
+
+@pytest.mark.parametrize('kwargs,match', [
+    (dict(ranks=3), 'portable'), (dict(threads=48), 'threads'),
+    (dict(cep=40), '16 channels'), (dict(cep=4096, threads=256), 'columns'),
+    (dict(cep=8192, cs=512, ranks=1, split_tiles=False, threads=1024),
+     'mbarrier|shared')],
+    ids=['ranks3', 'threads48', 'cep40', 'too_wide', 'too_large'])
+def test_se_plan_refuses_what_the_kernel_cannot_take(kwargs, match):
+    base = dict(n_tiles=9, cep=528, cs=22, ranks=8, split_tiles=True,
+                threads=256)
+    with pytest.raises(ValueError, match=match):
+        fm.make_se_plan(**{**base, **kwargs})
