@@ -55,8 +55,25 @@ Phases, each of which fails the run on any error:
      launches and busy share of one teacher-function call and of one
      evaluate batch, and evaluate()'s frames/s, are printed beside the
      card's name and power limit.
-  6. report: one JSON line of kernel results (launches summed over the
-     serving and the teacher phases), then as the last line
+  6. train: the shipped recipe (configs/mm-distillnet.cfg:
+     traditional_nms_augmented, MTALoss, w_kd 0.005, T 9, p 2, Adam at lr
+     1e-4) at D2@768, batch 8, fused_inference=True, bf16 compute: three
+     seeded teachers and the seeded student on a fixed batch of
+     SyntheticMultimodal frames (compact audio). One step must launch each
+     kernel 69 times (counts set to 0 just before, read just after); over 8
+     steps of Adam every loss is finite, the student's parameters change
+     and the last total loss is below the first; the MTA loss from the
+     kernel plan's teacher features must agree with the plain-version
+     plan's (relative MTA_RTOL). Host ms, device busy ms, launches and busy
+     share of the step, of its teacher half, of the student's forward +
+     losses + backward and of the optimizer, and the step's peak device
+     memory, are printed beside the card's name and power limit. train()
+     then runs one fast-run epoch (2 steps, 2 validation batches, 69
+     launches of each kernel per batch) and writes a checkpoint under
+     chiprun_out/train_smoke/, which must restore the epoch, the best
+     loss, the scheduler's state and the student;
+  7. report: one JSON line of kernel results (launches summed over the
+     serving, teacher and train phases), then as the last line
      {"ok": true, "device": {...}}.
 
 Per-block numbers go to chiprun_out/chip_smoke.json. Without a CUDA device
@@ -66,9 +83,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import csv
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -78,13 +97,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mm_distillnet_torch.config import config_from_dict, default_config
+from mm_distillnet_torch.config import (compute_dtype_from, config_from_dict,
+                                        default_config, load_config,
+                                        transfer_dtype_from)
 from mm_distillnet_torch.data.base import (prediction_to_label_lut,
                                            valid_prediction_ids)
 from mm_distillnet_torch.data.loader import collate
 from mm_distillnet_torch.data.synthetic import SyntheticMultimodal
+from mm_distillnet_torch.distill import train_step as ts
 from mm_distillnet_torch.evaluation import (evaluate, make_fused_teacher_fn,
                                             make_predict_fn)
+from mm_distillnet_torch.losses.mta import attention_map, mta_loss
 from mm_distillnet_torch.models import fused_forward
 from mm_distillnet_torch.models.efficientdet import EfficientDet
 from mm_distillnet_torch.models.efficientnet import (MBConvBlock,
@@ -92,9 +115,12 @@ from mm_distillnet_torch.models.efficientnet import (MBConvBlock,
 from mm_distillnet_torch.ops import cuda_build
 from mm_distillnet_torch.ops.boxes import pairwise_iou_xyxy
 from mm_distillnet_torch.ops import fused_mbconv as fm
+from mm_distillnet_torch.ops.anchors import anchor_table
 from mm_distillnet_torch.ops.postprocess import class_validity_table
 from mm_distillnet_torch.ops.resize import maybe_stretch_mel_axis
 from mm_distillnet_torch.serving import make_serving_fn, serve_many
+from mm_distillnet_torch.train import checkpoint, trainer
+from mm_distillnet_torch.train.optim import apply_gradients, build_scheduler
 
 IMAGE_SIZE = 768
 IN_CHANNELS = 8
@@ -106,6 +132,11 @@ SOURCES = {'mbconv_expand_dw': 'mm_distillnet_torch/csrc/mbconv_expand_dw.cu',
            'mbconv_project': 'mm_distillnet_torch/csrc/mbconv_project.cu'}
 REPLACES = 'mm_distillnet_tpu/ops/pallas_mbconv.py:137'
 OUT_DIR = Path(__file__).resolve().parent / 'chiprun_out'
+RECIPE = Path(__file__).resolve().parent / 'configs' / 'mm-distillnet.cfg'
+# kernel plan against plain-version plan: the largest relative difference
+# of one teacher's MTA loss at one level (seeds 0-2: 1.04e-7, 1.98e-7,
+# 1.32e-7; PERF.md)
+MTA_RTOL = 2e-6
 # the kernels of csrc/mbconv*.cu by their names in a profiler trace
 KERNEL_NAMES = {'mbconv_expand_dw': re.compile(r'\b(expand_dw_kernel|dw_only_kernel)\b'),
                 'mbconv_se': re.compile(r'\bse_kernel\b'),
@@ -176,6 +207,15 @@ def _union_us(intervals) -> float:
     return busy
 
 
+def _on_device(event) -> bool:
+    """A kernel or copy on the card; not a user annotation such as the
+    optimizer's `Optimizer.step#Adam.step`, which the trace also places on
+    the device's timeline, spanning the step's gaps."""
+    return (event.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(event, 'is_user_annotation', False)
+            and not event.key.startswith('Optimizer.'))
+
+
 def device_breakdown(fn, reps: int = 3) -> dict:
     """CUDA kernel time over `reps` calls of fn (torch.profiler), per call:
     `busy_ms` is the time in which at least one kernel ran (the union of the
@@ -192,14 +232,13 @@ def device_breakdown(fn, reps: int = 3) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages() if _on_device(e)]
     sum_us = sum(e.self_device_time_total for e in kernels)
     if sum_us == 0:
         return {'measured': False}
     busy_us = _union_us(
         (e.time_range.start, e.time_range.end) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA)
+        if _on_device(e))
     by_kernel = {n: sum(e.self_device_time_total for e in kernels
                         if pat.search(e.key)) / reps / 1e3
                  for n, pat in KERNEL_NAMES.items()}
@@ -353,7 +392,7 @@ def seeded_detector(seed: int, batch: int, device,
     x = calib.float()
     model.train()
     with torch.no_grad():
-        model(x)
+        model(x, generator=torch.Generator(device=device).manual_seed(seed))
     for m in bns:
         m.momentum = 0.01
     return model.eval()
@@ -787,6 +826,186 @@ def teacher_phase(batch: int, seed: int, device, card: str):
             'timing': timing, 'evaluate': {'frames_per_s': fps, **numbers}}
 
 
+def train_phase(batch: int, seed: int, device, card: str):
+    """The distillation step of the shipped recipe at D2@768, then train()
+    end to end with a checkpoint and its restore."""
+    t0 = time.perf_counter()
+    exp = OUT_DIR / 'train_smoke'
+    shutil.rmtree(exp, ignore_errors=True)   # resume=True must find none
+    frames = 2 * batch
+    config = load_config(str(RECIPE), extra=dict(
+        image_size=IMAGE_SIZE, batch_size=batch, synthetic_size=frames,
+        fused_inference=True,
+        compute_dtype='bfloat16', device_audio_resize=True, num_workers=4,
+        exp_name=str(exp), log_path=str(exp / 'tensorboard'), rank=0,
+        seed=seed, fast_run=True, num_epoches=1, val_interval=1))
+    cfg = trainer.distill_config_from(config, IMAGE_SIZE)
+    recipe = (cfg.train_method, cfg.kd_loss, cfg.w_kd, cfg.T, cfg.p,
+              config['optimizer'], config.getfloat('lr'))
+    if recipe != ('traditional_nms_augmented', 'MTALoss', 0.005, 9.0, 2.0,
+                  'Adam', 1e-4):
+        raise AssertionError(f'not the shipped recipe: {recipe}')
+    dtype = compute_dtype_from(config)
+    train_set = SyntheticMultimodal(config, 'train')
+    val_set = SyntheticMultimodal(config, 'val')
+    host = collate([train_set[i] for i in range(batch)],
+                   cfg.pl.max_gt)
+    if host['audio'].shape[1] != 80:
+        raise AssertionError('the compact audio ingest is off')
+    inputs = trainer.device_batch(host, device, transfer_dtype_from(config))
+    if inputs['audio'].dtype != torch.bfloat16:
+        raise AssertionError('the modalities must travel in bf16')
+    teachers = {m: seeded_detector(seed + 10 + i, batch, device, inputs[m])
+                for i, m in enumerate(TEACHERS)}
+    student = seeded_detector(
+        seed, batch, device, maybe_stretch_mel_axis(inputs['audio'],
+                                                    IMAGE_SIZE))
+    anchors = torch.as_tensor(anchor_table(IMAGE_SIZE), device=device)
+    class_valid, lut = trainer.label_tables(train_set, NUM_CLASSES, device)
+    t = time.perf_counter()
+    frozen = ts.make_teachers(teachers, image_size=IMAGE_SIZE, fused=True,
+                              dtype=dtype, device=device)
+    state = ts.init_train_state(copy.deepcopy(student), config,
+                                device=device)
+    step = ts.make_train_step(frozen, cfg, anchors, class_valid, lut,
+                              compute_dtype=dtype, seed=seed, device=device)
+    setup_s = time.perf_counter() - t
+    params0 = [p.detach().clone() for p in state.model.parameters()]
+    sections = {'setup': time.perf_counter() - t0}
+
+    # the main path: every count 0 just before, read just after
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fm.reset_launches()
+    history = [step(state, inputs)]
+    torch.cuda.synchronize()
+    counts = expect_launches('train step', BLOCKS * len(TEACHERS))
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # (3) 8 steps of Adam on the fixed batch
+    history += [step(state, inputs) for _ in range(7)]
+    losses = {k: [float(m[k]) for m in history] for k in ts.METRICS}
+    print(f'train step losses over 8 steps: {json.dumps(losses)}',
+          flush=True)
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError('a loss is not finite')
+    if not losses['Total_loss'][-1] < losses['Total_loss'][0]:
+        raise AssertionError('the total loss did not fall over 8 steps')
+    moved = sum(not torch.equal(p, q) for p, q in
+                zip(state.model.parameters(), params0))
+    if moved < len(params0) // 2:
+        raise AssertionError(f'only {moved} of {len(params0)} parameter '
+                             'tensors changed')
+
+    sections['8 steps'] = time.perf_counter() - t0
+    # (2) MTA from the kernel plan's teacher features against the
+    # plain-version plan's, same batch, same student features
+    targets = ts.teacher_targets(frozen, inputs, cfg, anchors, class_valid,
+                                 lut)
+    with plain_blocks():
+        targets_plain = ts.teacher_targets(frozen, inputs, cfg, anchors,
+                                           class_valid, lut)
+    state.model.eval()
+    with torch.no_grad(), torch.autocast('cuda', dtype):
+        feats_s = state.model.distill_features(
+            state.model(targets.student_input))
+    mta = {plan: torch.stack([mta_loss(feats_s, f, cfg.T, cfg.p,
+                                       cfg.mta_parity)
+                              for f in tg.features]).cpu()
+           for plan, tg in (('kernel', targets), ('plain', targets_plain))}
+    mta_rel = float(((mta['kernel'] - mta['plain']).abs() /
+                     mta['plain'].abs().clamp(min=1e-6)).max())
+    # at T = 9 the MTA of these maps sits near -log(H*W) whatever they
+    # hold, so the maps themselves are compared too (a reading, no gate)
+    at_rel = max(float((attention_map(k) - attention_map(q)).norm()
+                       / attention_map(q).norm())
+                 for fk, fq in zip(targets.features, targets_plain.features)
+                 for k, q in zip(fk, fq))
+    print(f'MTA per teacher and level, kernel plan {mta["kernel"].tolist()}'
+          f', plain-version plan {mta["plain"].tolist()}: largest relative '
+          f'difference {mta_rel:.3g} (gate {MTA_RTOL}); attention maps: '
+          f'largest relative L2 difference {at_rel:.3g}', flush=True)
+    if not mta_rel < MTA_RTOL:
+        raise AssertionError(f'MTA of the kernel plan differs by {mta_rel}')
+
+    sections['mta'] = time.perf_counter() - t0
+    # readings: the step and its three parts
+    gen = torch.Generator(device=device)
+
+    def student_half():
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, _ = ts.student_losses(state.model, targets, cfg, anchors,
+                                    True, gen.manual_seed(seed), dtype)
+        loss.backward()
+
+    parts = {'step': lambda: step(state, inputs),
+             'teacher_half': lambda: ts.teacher_targets(
+                 frozen, inputs, cfg, anchors, class_valid, lut),
+             'student_fwd_loss_bwd': student_half,
+             'optimizer': lambda: apply_gradients(state.optimizer)}
+    readings = {'peak_mib': peak_bytes / 2**20,
+                'before_step_mib': base_bytes / 2**20}
+    for part, fn in parts.items():
+        fn()                                  # warm-up
+        ms = host_ms(fn, 3)
+        prof = device_breakdown(fn, 1)
+        readings[part] = {'host_ms': ms, **prof}
+        if prof['measured']:
+            readings[part]['busy_share'] = prof['busy_ms'] / ms
+        print(f'{card} | train {part} D2@768 batch {batch}: '
+              + json.dumps({k: v for k, v in readings[part].items()
+                            if k != 'top'}), flush=True)
+    print(f'{card} | train step peak device memory '
+          f'{readings["peak_mib"]:.1f} MiB ({readings["before_step_mib"]:.1f}'
+          ' MiB allocated before the step)', flush=True)
+
+    sections['readings'] = time.perf_counter() - t0
+    # (4) train() end to end: two iterations, one validation, a checkpoint
+    fm.reset_launches()
+    final = trainer.train({m: (net, net.state_dict())
+                           for m, net in teachers.items()},
+                          (student, student.state_dict()), config, train_set,
+                          val_set, device=device)
+    torch.cuda.synchronize()
+    # two train iterations and two validation batches, three teachers each
+    for name, c in expect_launches('train()',
+                                   4 * BLOCKS * len(TEACHERS)).items():
+        counts[name] += c
+    if final.step != 2:
+        raise AssertionError(f'train() took {final.step} steps')
+    for name in ('checkpoint.0', 'best.0', 'only_parameters_student_best.0',
+                 'all_logs.0.json'):
+        if not (exp / name).exists():
+            raise AssertionError(f'train() wrote no {name}')
+    logs = json.loads((exp / 'all_logs.0.json').read_text())
+    val_loss = logs['Test/Total_loss']['0']
+    fresh = ts.init_train_state(copy.deepcopy(student), config,
+                                device=device)
+    scheduler = build_scheduler(config)
+    _, start, best, best_epoch = checkpoint.restore_checkpoint(
+        config, fresh, scheduler)
+    want = {'lr': 1e-4, 'best': logs['Train/Total_loss']['1'], 'num_bad': 0}
+    if (start, best_epoch, fresh.step) != (1, 0, 2) or \
+            not np.isclose(best, val_loss) or scheduler.state_dict() != want:
+        raise AssertionError(f'restored epoch {start}, best {best} @ '
+                             f'{best_epoch}, step {fresh.step}, scheduler '
+                             f'{scheduler.state_dict()}; want best '
+                             f'{val_loss}, scheduler {want}')
+    if not all(torch.equal(v, final.model.state_dict()[k])
+               for k, v in fresh.model.state_dict().items()):
+        raise AssertionError('the restored student differs')
+    print(f'train(): 2 steps, validation loss {val_loss:.4f}, checkpoint '
+          'restored (epoch, best loss, scheduler, student)', flush=True)
+    for name in ('checkpoint.0', 'best.0', 'only_parameters_student_best.0'):
+        (exp / name).unlink()    # hundreds of MB; the logs stay
+    sections['train()'] = time.perf_counter() - t0
+    print(f'train phase seconds elapsed: {json.dumps(sections)}', flush=True)
+    return {'counts': counts, 'setup_s': setup_s, 'losses': losses,
+            'mta': {k: v.tolist() for k, v in mta.items()},
+            'mta_max_rel_diff': mta_rel, 'attention_max_rel_diff': at_rel,
+            'readings': readings,
+            'train_val_loss': val_loss}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     p.add_argument('--seed', type=int, default=0)
@@ -825,13 +1044,15 @@ def main(argv=None) -> int:
     totals, rows = kernel_phase(a.batch, a.seed, device)
     served = slice_phase(a.batch, a.seed, device)
     taught = teacher_phase(a.batch, a.seed, device, card)
+    trained = train_phase(a.batch, a.seed, device, card)
 
     kernels = []
     for name, t in totals.items():
         kernels.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES,
-            'launches': served['counts'][name] + taught['counts'][name],
+            'launches': (served['counts'][name] + taught['counts'][name]
+                         + trained['counts'][name]),
             'max_abs_err': t['max_abs_err'], 'ms': t['ms'],
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': ('bytes' if t['bound_bytes_ms'] * 2 >= t['bound_ms']
@@ -842,7 +1063,7 @@ def main(argv=None) -> int:
         'card': card, 'kind': kind, 'torch': torch.__version__,
         'cuda': torch.version.cuda, 'batch': a.batch, 'seed': a.seed,
         'build_s': build_s, 'kernels': kernels, 'blocks': rows,
-        'slice': served, 'teachers': taught}, indent=1))
+        'slice': served, 'teachers': taught, 'train': trained}, indent=1))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -15,5 +15,9 @@ distillation with the whole of evaluation: the compact-audio stretch
 their fusion into pseudo-labels (`distill/pseudo_labels.py`,
 `evaluation.make_fused_teacher_fn`), the config, the synthetic dataset and
 loader (`config.py`, `data/`), the metrics (`utils/metrics.py`) and
-`evaluation.evaluate`.
+`evaluation.evaluate`; and training: the losses (`losses/`), the
+distillation step with the teachers on the same kernels
+(`distill/train_step.py`), optimizers and schedulers (`train/optim.py`),
+checkpoints (`train/checkpoint.py`), run logging (`utils/`) and
+`train.trainer.train`.
 """

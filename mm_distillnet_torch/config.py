@@ -138,6 +138,15 @@ def default_config(**overrides: Any):
     return config_from_dict(values)
 
 
+def compute_dtype_from(config):
+    """The models' activation dtype (config `compute_dtype`, default bf16),
+    a torch dtype."""
+    import torch
+    return {'bfloat16': torch.bfloat16, 'float32': torch.float32,
+            'float16': torch.float16}[
+        config.get('compute_dtype', 'bfloat16') or 'bfloat16']
+
+
 def transfer_dtype_from(config):
     """Host->device input transfer dtype (a torch dtype, or None for no
     cast). Defaults to the compute dtype: when the models run bf16,

@@ -1,1 +1,1 @@
-"""Distillation: pseudo-labels from the teachers (the train step waits for the training slice)."""
+"""Distillation: pseudo-labels from the teachers and the train step."""

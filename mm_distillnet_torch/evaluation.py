@@ -39,25 +39,22 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import student_input_key, transfer_dtype_from
-from .data.base import prediction_to_label_lut, valid_prediction_ids
+from .config import (compute_dtype_from, student_input_key,
+                     transfer_dtype_from)
 from .data.loader import DataLoader
 from .device import resolve_device
 from .distill.pseudo_labels import fuse_teacher_labels, teacher_detections
 from .models.fused_forward import make_fused_predictor
 from .ops.anchors import anchor_table
-from .ops.postprocess import (class_validity_table, detections_to_labels,
-                              postprocess_detections)
+from .ops.postprocess import detections_to_labels, postprocess_detections
 from .ops.resize import maybe_stretch_mel_axis
-from .train.trainer import distill_config_from
+from .train.trainer import distill_config_from, label_tables
 from .utils.metrics import (ap_per_class, get_batch_central_distances,
                             get_batch_statistics, labels_to_lists)
 
 logger = logging.getLogger(__name__)
 
 _BUFFER_SUFFIXES = ('running_mean', 'running_var', 'num_batches_tracked')
-_DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32,
-           'float16': torch.float16}
 
 
 def count_params(variables) -> int:
@@ -67,11 +64,6 @@ def count_params(variables) -> int:
         return int(sum(p.numel() for p in variables.parameters()))
     return int(sum(v.numel() for k, v in variables.items()
                    if not k.endswith(_BUFFER_SUFFIXES)))
-
-
-def compute_dtype_from(config) -> torch.dtype:
-    """The models' activation dtype (config `compute_dtype`, default bf16)."""
-    return _DTYPES[config.get('compute_dtype', 'bfloat16') or 'bfloat16']
 
 
 def _refuse_unported(config, mesh=None, quant_pack=None) -> None:
@@ -243,11 +235,7 @@ def evaluate(teacher_models: Dict[str, Tuple[Any, Any]],
     s_module, s_vars = student_model
     num_classes = s_module.num_classes
 
-    vcd = test_set.valid_classes_dict
-    class_valid = torch.as_tensor(class_validity_table(
-        num_classes, valid_prediction_ids(vcd)), device=dev)
-    pred_to_label = torch.as_tensor(
-        prediction_to_label_lut(vcd, num_classes), device=dev)
+    class_valid, pred_to_label = label_tables(test_set, num_classes, dev)
 
     if (config.getint('eval_devices', fallback=-1) or -1) > 1:
         raise NotImplementedError(

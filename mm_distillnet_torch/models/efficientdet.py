@@ -7,7 +7,7 @@ permuted is a channels_last NCHW view, so no copy is made).
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -52,18 +52,26 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
 
 class EfficientDet(nn.Module):
     """One parameterisation serves all four networks: RGB/depth teachers
-    (3 input channels), thermal teacher (1), audio student (8)."""
+    (3 input channels), thermal teacher (1), audio student (8).
+    `features_from` picks the features the KD loss reads ('efficientnet':
+    the five BiFPN maps; 'header': the heads' alignment feature);
+    `drop_connect_rate` is the backbone's stochastic depth in train mode."""
 
     def __init__(self, num_classes: int = 20, compound_coef: int = 2,
-                 in_channels: int = 8):
+                 in_channels: int = 8, features_from: str = 'efficientnet',
+                 drop_connect_rate: float = 0.2):
         super().__init__()
+        if features_from not in ('efficientnet', 'header'):
+            raise NotImplementedError(features_from)
         cc = compound_coef
         self.num_classes = num_classes
         self.compound_coef = cc
         self.in_channels = in_channels
+        self.features_from = features_from
         fpn = FPN_NUM_FILTERS[cc]
         self.backbone_net = EfficientNetFeatures(BACKBONE_COEF[cc],
-                                                 in_channels)
+                                                 in_channels,
+                                                 drop_connect_rate)
         self.bifpn = BiFPN(fpn, FPN_CELL_REPEATS[cc],
                            backbone_feature_channels(BACKBONE_COEF[cc]),
                            attention=cc < 6)
@@ -85,8 +93,18 @@ class EfficientDet(nn.Module):
             align_features=nhwc(align),
             logits=logits.float())
 
-    def forward(self, x: torch.Tensor) -> DetectorOutput:
-        """x (B, H, W, C) NHWC."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> DetectorOutput:
+        """x (B, H, W, C) NHWC. In train mode `generator` draws the
+        backbone's drop-connect masks."""
         w = self.backbone_net.model._conv_stem.conv.weight
-        feats = self.backbone_net(nchw(x.to(w.dtype)))
+        feats = self.backbone_net(nchw(x.to(w.dtype)), generator)
         return self.heads(feats[1], feats[2], feats[3])
+
+    def distill_features(self, out: DetectorOutput) -> List[torch.Tensor]:
+        """The features handed to the KD loss, per `features_from`
+        (reference src/YetAnotherEfficientDet.py:680-685)."""
+        if self.features_from == 'efficientnet':
+            return list(out.features)
+        return [out.align_features]

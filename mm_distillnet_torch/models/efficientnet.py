@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -127,7 +127,9 @@ class MBConvBlock(nn.Module):
         self._project_conv = Conv2dSame(oup, a.output_filters, 1, bias=False)
         self._bn2 = batch_norm(a.output_filters)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` draws the drop-connect masks in train mode."""
         a = self.args
         inputs = x
         if a.expand_ratio != 1:
@@ -139,7 +141,8 @@ class MBConvBlock(nn.Module):
             x = torch.sigmoid(s) * x
         x = self._bn2(self._project_conv(x))
         if a.id_skip and a.stride == 1 and a.input_filters == a.output_filters:
-            x = drop_connect(x, self.drop_connect_rate, self.training)
+            x = drop_connect(x, self.drop_connect_rate, self.training,
+                             generator)
             x = x + inputs
         return x
 
@@ -160,7 +163,9 @@ class EfficientNet(nn.Module):
             MBConvBlock(a, drop_connect_rate * float(i) / n)
             for i, a in enumerate(self.block_args))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
         x = swish(self._bn0(self._conv_stem(x)))
         feature_maps = []
         last_x = None
@@ -168,7 +173,7 @@ class EfficientNet(nn.Module):
         for idx, block in enumerate(self._blocks):
             if block.args.stride == 2:
                 feature_maps.append(last_x)
-            x = block(x)
+            x = block(x, generator)
             if idx == n - 1:
                 feature_maps.append(x)
             last_x = x
@@ -187,8 +192,10 @@ class EfficientNetFeatures(nn.Module):
         self.model = EfficientNet(compound_coef, in_channels,
                                   drop_connect_rate)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        return self.model(x)[1:]
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        return self.model(x, generator)[1:]
 
 
 def backbone_feature_channels(compound_coef: int) -> Tuple[int, int, int]:

@@ -156,3 +156,27 @@ def make_fused_predictor(model: EfficientDet,
 
     forward.backbone = backbone
     return forward
+
+
+def make_eval_forward(model: EfficientDet,
+                      state_dict: Mapping[str, torch.Tensor],
+                      image_size: int, fused: bool,
+                      dtype: torch.dtype = torch.bfloat16,
+                      device='cuda') -> Callable[[torch.Tensor],
+                                                 DetectorOutput]:
+    """fn(x (B, H, W, C)) -> DetectorOutput of a frozen network in eval
+    mode, without grad: with `fused`, through the fused backbone (the
+    MBConv kernels, weights folded once); else a copy of `model` holding
+    `state_dict`, on `device` in `dtype`."""
+    if fused:
+        return make_fused_predictor(model, state_dict, image_size,
+                                    dtype=dtype, device=device)
+    net = copy.deepcopy(model)
+    net.load_state_dict(state_dict)
+    net = net.to(resolve_device(device), dtype).eval().requires_grad_(False)
+
+    @torch.no_grad()
+    def forward(x: torch.Tensor) -> DetectorOutput:
+        return net(x)
+
+    return forward

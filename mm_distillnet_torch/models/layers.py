@@ -14,7 +14,7 @@ src/YetAnotherEfficientNet.py:90-103).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,8 +70,31 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose train-mode update of the running variance takes
+    the biased batch variance, as flax's BatchNorm does (and so the JAX
+    package); torch takes the unbiased one, n/(n-1) times larger, with n =
+    B*H*W (the reference PyTorch code therefore differs from both here).
+    Normalisation itself uses the biased variance in all three."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        old = self.running_var.clone()
+        y = super().forward(x)
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        if m is None:   # cumulative average, as torch defines it
+            m = 1.0 / float(self.num_batches_tracked)
+        # torch wrote (1-m) old + m v n/(n-1); keep (1-m) old + m v. Through
+        # .data: the op saved running_var for its backward, which in train
+        # mode does not read it, and a version bump would refuse the backward
+        self.running_var.data.lerp_(old.mul_(1.0 - m), 1.0 / n)
+        return y
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class Conv2dSame(nn.Module):
@@ -116,11 +139,17 @@ class SeparableConvBlock(nn.Module):
         return x
 
 
-def drop_connect(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
-    """Per-sample stochastic depth (reference src/YetAnotherEfficientNet.py:176-186)."""
+def drop_connect(x: torch.Tensor, rate: float, training: bool,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Per-sample stochastic depth (reference
+    src/YetAnotherEfficientNet.py:176-186). The mask is drawn from
+    `generator`, which train mode with a non-zero rate requires."""
     if not training or rate == 0.0:
         return x
+    if generator is None:
+        raise ValueError('drop_connect draws its mask from an explicit '
+                         'torch.Generator; pass generator=')
     keep = 1.0 - rate
-    mask = torch.floor(keep + torch.rand((x.shape[0], 1, 1, 1),
-                                         dtype=x.dtype, device=x.device))
-    return x / keep * mask
+    u = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
+                   device=x.device)
+    return x / keep * torch.floor(keep + u).to(x.dtype)

@@ -47,3 +47,22 @@ def pairwise_iou_xyxy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     inter = wh[..., 0] * wh[..., 1]
     union = area_a[..., :, None] + area_b[..., None, :] - inter
     return inter / union.clamp(min=1e-8)
+
+
+def iou_anchors_vs_gt(anchors_yxyx: torch.Tensor, gt_xyxy: torch.Tensor
+                      ) -> torch.Tensor:
+    """IoU between anchors (N, 4) in [y1,x1,y2,x2] and gt boxes (..., G, 4)
+    in [x1,y1,x2,y2] -> (..., N, G). Matches calc_iou of the reference
+    (src/loss/YetAnotherFocalLoss.py:6-20; union clamped at 1e-8)."""
+    a = anchors_yxyx
+    b = gt_xyxy[..., None, :, :]                              # (..., 1, G, 4)
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    iw = torch.minimum(a[:, 3, None], b[..., 2]) - \
+        torch.maximum(a[:, 1, None], b[..., 0])
+    ih = torch.minimum(a[:, 2, None], b[..., 3]) - \
+        torch.maximum(a[:, 0, None], b[..., 1])
+    iw = iw.clamp(min=0)
+    ih = ih.clamp(min=0)
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    union = (area_a[:, None] + area_b - iw * ih).clamp(min=1e-8)
+    return iw * ih / union

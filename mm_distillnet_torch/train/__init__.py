@@ -1,1 +1,2 @@
-"""Training orchestration; so far only the config mapping that evaluation needs."""
+"""Training orchestration: optimizers and schedulers, checkpoints, the
+trainer."""

@@ -171,3 +171,50 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
         fm.se_gate(sums.transpose(0, 1).contiguous().transpose(0, 1), f, 144)
     with pytest.raises(ValueError, match='se_pack'):
         fm.se_gate(sums, f._replace(se_pack=f.se_pack[:-4]), 144)
+
+
+def test_train_step_runs_the_teachers_on_the_kernels(device):
+    """One distillation step at D2, 256 px, batch 2, fused_inference: 69
+    launches of each kernel (three teachers x 23 blocks), finite losses,
+    teacher outputs that need no grad, and two runs of the step from the
+    same generator seeds give bit-equal losses."""
+    import copy
+
+    from mm_distillnet_torch.config import default_config
+    from mm_distillnet_torch.distill import train_step as ts
+    from mm_distillnet_torch.distill.pseudo_labels import PseudoLabelConfig
+    from mm_distillnet_torch.models.efficientdet import EfficientDet
+    from mm_distillnet_torch.ops.anchors import anchor_table
+    from mm_distillnet_torch.ops.postprocess import class_validity_table
+
+    size = 256
+    channels = {'rgb': 3, 'thermal': 1, 'depth': 3}
+    torch.manual_seed(0)
+    teachers = {m: EfficientDet(20, 2, c).eval() for m, c in channels.items()}
+    student = EfficientDet(20, 2, 8)
+    g = torch.Generator(device=device).manual_seed(1)
+    batch = {m: torch.randn((2, size, size, c), generator=g, device=device)
+             .to(torch.bfloat16) for m, c in {**channels, 'audio': 8}.items()}
+    cfg = ts.DistillConfig(pl=PseudoLabelConfig(image_size=size))
+    tables = (torch.as_tensor(anchor_table(size), device=device),
+              torch.as_tensor(class_validity_table(20, list(range(20))),
+                              device=device),
+              torch.arange(20, device=device))
+    frozen = ts.make_teachers(teachers, image_size=size, fused=True,
+                              device=device)
+    out = frozen['rgb'].forward(batch['rgb'])
+    assert not any(t.requires_grad for t in
+                   (out.classification, out.regression, *out.features))
+    losses = []
+    for _ in range(2):
+        state = ts.init_train_state(copy.deepcopy(student), default_config(),
+                                    device=device)
+        step = ts.make_train_step(frozen, cfg, *tables, seed=5,
+                                  device=device)
+        fm.reset_launches()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        assert dict(fm.launches) == {n: 69 for n in fm.launches}
+        losses.append(torch.stack([metrics[k] for k in ts.METRICS]))
+    assert torch.isfinite(losses[0]).all()
+    assert torch.equal(losses[0], losses[1])

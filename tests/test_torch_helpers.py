@@ -12,11 +12,23 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from mm_distillnet_tpu.models.efficientnet import BlockArgs as JaxBlockArgs
 from mm_distillnet_tpu.models.efficientnet import MBConvBlock as JaxMBConv
 from mm_distillnet_torch.models.efficientnet import BlockArgs
+
+
+@pytest.fixture(scope='module')
+def one_torch_thread():
+    """torch on one intra-op thread for a module, restored after it: the
+    tests run several workers on a few cores, and torch's thread pool on
+    every core of a busy machine made a tiny-model file 4-20x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def filled_variables(module, seed, *args, **kwargs):

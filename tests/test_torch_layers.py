@@ -1,5 +1,6 @@
 """Port layers (mm_distillnet_torch.models.layers) against the reference's
 models/layers.py, fp32 on the CPU, rtol = atol = 1e-5."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -110,8 +111,48 @@ def test_separable_conv_block_has_bias_only_on_pointwise():
 def test_drop_connect_is_identity_in_eval_and_scales_in_train():
     x = torch.ones(64, 2, 2, 2)
     assert tl.drop_connect(x, 0.5, training=False) is x
-    torch.manual_seed(0)
-    y = tl.drop_connect(x, 0.5, training=True)
+    y = tl.drop_connect(x, 0.5, training=True,
+                        generator=torch.Generator().manual_seed(0))
     per_sample = y[:, 0, 0, 0]
     assert set(per_sample.unique().tolist()) <= {0.0, 2.0}
     assert (y == per_sample[:, None, None, None]).all()
+
+
+def test_drop_connect_draws_from_its_generator():
+    x = torch.ones(64, 1, 1, 1)
+
+    def draw(seed):
+        return tl.drop_connect(x, 0.5, True,
+                               torch.Generator().manual_seed(seed))
+    assert torch.equal(draw(3), draw(3))
+    assert not torch.equal(draw(3), draw(4))
+    with pytest.raises(ValueError, match='generator'):
+        tl.drop_connect(x, 0.5, training=True)
+
+
+def test_batch_norm_train_update_keeps_the_biased_variance_as_flax():
+    """flax's running variance takes the biased batch variance; torch's
+    nn.BatchNorm2d the unbiased one, n/(n-1) larger (n = B*H*W = 8 here).
+    The port's BatchNorm2d updates as flax does; it normalises alike."""
+    import flax.linen as fnn
+    x = nhwc_input(2, (2, 2, 2, 4)) * 3.0 + 1.0
+    mod = fnn.BatchNorm(use_running_average=False, momentum=jl.BN_MOMENTUM,
+                        epsilon=jl.BN_EPS)
+    v = mod.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    want, upd = mod.apply(v, jnp.asarray(x), mutable=['batch_stats'])
+    bn = tl.batch_norm(4).train()
+    got = bn(_nchw(x))
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), **TOL)
+    stats = upd['batch_stats']
+    np.testing.assert_allclose(bn.running_mean.numpy(), stats['mean'], **TOL)
+    np.testing.assert_allclose(bn.running_var.numpy(), stats['var'], **TOL)
+    plain = torch.nn.BatchNorm2d(4, eps=tl.BN_EPS, momentum=tl.BN_MOMENTUM)
+    plain(_nchw(x))
+    assert not np.allclose(plain.running_var.numpy(), stats['var'], **TOL)
+    # momentum None (a cumulative average) keeps the biased one too
+    calib = tl.batch_norm(4).train()
+    calib.momentum = None
+    calib(_nchw(x))
+    np.testing.assert_allclose(
+        calib.running_var.numpy(),
+        _nchw(x).var(dim=(0, 2, 3), unbiased=False).numpy(), **TOL)
