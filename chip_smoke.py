@@ -72,8 +72,35 @@ Phases, each of which fails the run on any error:
      launches of each kernel per batch) and writes a checkpoint under
      chiprun_out/train_smoke/, which must restore the epoch, the best
      loss, the scheduler's state and the student;
-  7. report: one JSON line of kernel results (launches summed over the
-     serving, teacher and train phases), then as the last line
+  7. cli: the port's command-line entry points as a user runs them.
+     Seeded D2 teachers (rgb 3, thermal 1, depth 3 channels, BN
+     statistics from one train-mode pass over the frames they will see)
+     and a seeded 8-channel student are written as reference-layout .pth
+     files ('state_dict' wrapper, 'module.' prefix) under
+     chiprun_out/cli/; the rgb teacher carries a marker value in
+     bifpn.0.p6_w1. mm_distillnet_torch.cli.train.main runs the shipped
+     config (configs/mm-distillnet.cfg) with dataset Synthetic (16
+     frames), fast_run, one epoch, validation every epoch, batch and
+     eval batch 8, fused_inference, resume off and pretrain_checkpoint =
+     the student file: D2 at 768 px, full width. With every launch count
+     set to 0 just before and read just after, each kernel must have run
+     69 times per train and validation step and 92 per evaluate batch
+     (the total derived from the loaders' lengths and fast_run); the
+     teachers must hold the files' tensors (marker included);
+     checkpoint.0 and best.0 must exist and the AP table be finite.
+     mm_distillnet_torch.cli.evaluate.main then scores best.0 on the same
+     frames (eval_split val): 92 launches of each kernel per batch, and
+     the same AP table within CLI_AP_TOL. mm_distillnet_torch.cli
+     .mp3_to_pkl.main converts seeded .wav clips (layout
+     */audio/*.wav) on the card: every pickle (80, 1 + n // 256), finite,
+     and within CLI_DB_TOL dB of the port's own CPU run of the frontend.
+     The wall seconds of the train CLI and its parts (model loading with
+     the .pth reads, the teachers' folding, train(), the final
+     evaluate), the evaluate CLI's seconds and FramesPerSec and
+     mp3_to_pkl's clips per second are printed beside the card's name and
+     power limit;
+  8. report: one JSON line of kernel results (launches summed over the
+     serving, teacher, train and cli phases), then as the last line
      {"ok": true, "device": {...}}.
 
 Per-block numbers go to chiprun_out/chip_smoke.json. Without a CUDA device
@@ -85,13 +112,17 @@ import argparse
 import contextlib
 import copy
 import csv
+import io
 import json
+import math
+import pickle
 import re
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -119,6 +150,9 @@ from mm_distillnet_torch.ops.anchors import anchor_table
 from mm_distillnet_torch.ops.postprocess import class_validity_table
 from mm_distillnet_torch.ops.resize import maybe_stretch_mel_axis
 from mm_distillnet_torch.serving import make_serving_fn, serve_many
+from mm_distillnet_torch.cli import evaluate as cli_evaluate
+from mm_distillnet_torch.cli import mp3_to_pkl as cli_mp3_to_pkl
+from mm_distillnet_torch.cli import train as cli_train
 from mm_distillnet_torch.train import checkpoint, trainer
 from mm_distillnet_torch.train.optim import apply_gradients, build_scheduler
 
@@ -137,6 +171,13 @@ RECIPE = Path(__file__).resolve().parent / 'configs' / 'mm-distillnet.cfg'
 # of one teacher's MTA loss at one level (seeds 0-2: 1.04e-7, 1.98e-7,
 # 1.32e-7; PERF.md)
 MTA_RTOL = 2e-6
+# the evaluate CLI on the train CLI's best.0 against the train CLI's own
+# final evaluate of it: the same frames and weights, so the tables agree
+# up to run-to-run rounding (AP and CD points)
+CLI_AP_TOL = 0.5
+# mp3_to_pkl on the card against the same frontend on the CPU, fp32 GEMMs
+# both (dB); the CPU run is within 2.7e-5 dB of the JAX package's
+CLI_DB_TOL = 1e-3
 # the kernels of csrc/mbconv*.cu by their names in a profiler trace
 KERNEL_NAMES = {'mbconv_expand_dw': re.compile(r'\b(expand_dw_kernel|dw_only_kernel)\b'),
                 'mbconv_se': re.compile(r'\bse_kernel\b'),
@@ -1006,6 +1047,261 @@ def train_phase(batch: int, seed: int, device, card: str):
             'train_val_loss': val_loss}
 
 
+@contextlib.contextmanager
+def timed_calls(module, name: str, seconds: dict, calls: list = None):
+    """Wrap module.name: its wall seconds add up in seconds[name], and each
+    call's (args, result) is appended to `calls`."""
+    original = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        t = time.perf_counter()
+        out = original(*args, **kwargs)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+        if calls is not None:
+            calls.append((args, out))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+@contextlib.contextmanager
+def timed_products(module, name: str, seconds: dict, key: str):
+    """Wrap the factory module.name: every function it makes has its wall
+    seconds, from a synchronize before to one after each call, added up in
+    seconds[key] (and its calls counted in seconds[key + '_calls'])."""
+    original = getattr(module, name)
+
+    def factory(*args, **kwargs):
+        fn = original(*args, **kwargs)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t
+            seconds[key + '_calls'] = seconds.get(key + '_calls', 0) + 1
+            return out
+        return timed
+
+    setattr(module, name, factory)
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def write_reference_pth(model: torch.nn.Module, path: Path) -> dict:
+    """The model's weights in the reference's .pth layout ('state_dict'
+    wrapper, DataParallel's 'module.' prefix); returns the state_dict."""
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.save({'epoch': 0, 'state_dict': {f'module.{k}': v
+                                           for k, v in sd.items()}},
+               str(path))
+    return sd
+
+
+def write_wav(path: Path, pcm: np.ndarray, rate: int) -> None:
+    with wave.open(str(path), 'wb') as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes((np.clip(pcm, -1, 1) * 32767).astype(np.int16)
+                      .tobytes())
+
+
+def cli_phase(batch: int, seed: int, device, card: str):
+    """The train, evaluate and mp3_to_pkl CLIs as a user runs them."""
+    t0 = time.perf_counter()
+    root = OUT_DIR / 'cli'
+    shutil.rmtree(root, ignore_errors=True)
+    models = root / 'trained_models'
+    models.mkdir(parents=True)
+    frames = 2 * batch
+    overwrite = dict(
+        dataset='Synthetic', synthetic_size=frames, fast_run=True,
+        num_epoches=1, val_interval=1, batch_size=batch,
+        eval_batch_size=batch, fused_inference=True, resume=False,
+        exp_name=str(root / 'exp'), saved_path=str(models),
+        log_path=str(root / 'tensorboard'),
+        pretrain_checkpoint=str(root / 'student.pth'))
+    config = load_config(str(RECIPE), json.dumps(overwrite))
+
+    # (1) the files: seeded D2 networks, BN statistics from the frames
+    # each will see, in the reference's .pth layout
+    train_set = SyntheticMultimodal(config, 'train')
+    host = collate([train_set[i] for i in range(batch)])
+    inputs = trainer.device_batch(host, device, None)
+    files = {}
+    for i, m in enumerate(TEACHERS):
+        net = seeded_detector(seed + 10 + i, batch, device, inputs[m])
+        if m == 'rgb':
+            with torch.no_grad():
+                net.bifpn[0].p6_w1.copy_(torch.tensor([0.625, 0.375]))
+        files[m] = write_reference_pth(
+            net, models / f'yet-another-efficientdet-d2-{m}.pth')
+    student = seeded_detector(seed, batch, device, maybe_stretch_mel_axis(
+        inputs['audio'], IMAGE_SIZE))
+    student_sd = write_reference_pth(student, root / 'student.pth')
+    del net, student, inputs
+    sections = {'files': time.perf_counter() - t0}
+
+    # (2) the train CLI; its parts timed through the functions it calls
+    args = ['--config_file', str(RECIPE), '--overwrite',
+            json.dumps(overwrite)]
+    seconds, loads = {}, []
+    steps = min(2, math.ceil(frames / batch))   # fast_run: two batches
+    expected = 2 * steps * BLOCKS * len(TEACHERS) \
+        + steps * BLOCKS * (len(TEACHERS) + 1)
+    with timed_calls(cli_train, 'load_model', seconds, loads), \
+            timed_calls(cli_train, 'get_dataset', seconds), \
+            timed_calls(trainer, 'make_teachers', seconds), \
+            timed_products(trainer, 'make_train_step', seconds, 'steps'), \
+            timed_products(trainer, 'make_eval_loss_step', seconds,
+                           'validation_steps'), \
+            timed_calls(trainer, 'save_checkpoint', seconds), \
+            timed_calls(cli_train, 'train', seconds), \
+            timed_calls(cli_train, 'evaluate', seconds):
+        torch.cuda.synchronize()
+        fm.reset_launches()       # the main path: counts 0 just before
+        t = time.perf_counter()
+        table = cli_train.main(args)
+        torch.cuda.synchronize()
+        seconds['train_cli'] = time.perf_counter() - t
+        counts = expect_launches('train CLI', expected)
+    teachers = {args_[2]: out[1] for args_, out in loads
+                if args_[2] != 'audio_student'}
+    if sorted(teachers) != sorted(TEACHERS):
+        raise AssertionError(f'the train CLI loaded {sorted(teachers)}')
+    for m, sd in teachers.items():
+        for k, v in files[m].items():
+            if not torch.equal(sd[k], v):
+                raise AssertionError(f'teacher {m}: {k} is not the file\'s')
+    if teachers['rgb']['bifpn.0.p6_w1'].tolist() != [0.625, 0.375]:
+        raise AssertionError('the rgb teacher lacks the file\'s marker')
+    exp = Path(config['exp_name'])
+    for name in ('checkpoint.0', 'best.0'):
+        if not (exp / name).exists():
+            raise AssertionError(f'the train CLI wrote no {name}')
+    numbers = {k: v for k, v in table[0].items()
+               if k not in ('exp_name', 'modality')}
+    if [r['modality'] for r in table] != ['ALL'] or \
+            not all(np.isfinite(v) for v in numbers.values()):
+        raise AssertionError(f'train CLI AP table {table}')
+    in_train = ('make_teachers', 'steps', 'validation_steps',
+                'save_checkpoint')
+    train_cli = {'seconds': seconds['train_cli'],
+                 'load_models_s': seconds['load_model'],
+                 'datasets_s': seconds['get_dataset'],
+                 'train_s': seconds['train'],
+                 'fold_teachers_s': seconds['make_teachers'],
+                 'train_steps_s': seconds['steps'],
+                 'train_steps': seconds['steps_calls'],
+                 'validation_steps_s': seconds['validation_steps'],
+                 'validation_steps': seconds['validation_steps_calls'],
+                 'save_checkpoint_s': seconds['save_checkpoint'],
+                 'train_rest_s': seconds['train']
+                 - sum(seconds[k] for k in in_train),
+                 'final_evaluate_s': seconds['evaluate'],
+                 'launches_per_kernel': expected, 'ap_table': numbers}
+    print(f'{card} | train CLI D2@768 batch {batch} ({steps} steps, {steps} '
+          f'validation and {steps} evaluate batches): '
+          + json.dumps(train_cli), flush=True)
+    sections['train CLI'] = time.perf_counter() - t0
+
+    # (3) the evaluate CLI on best.0, the same frames
+    eval_over = dict(overwrite, eval_split='val',
+                     exp_name=str(root / 'exp_eval'))
+    torch.cuda.synchronize()
+    fm.reset_launches()
+    t = time.perf_counter()
+    scored = cli_evaluate.main(['--config_file', str(RECIPE),
+                                '--checkpoint', str(exp / 'best.0'),
+                                '--overwrite', json.dumps(eval_over)])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    for name, c in expect_launches(
+            'evaluate CLI', steps * BLOCKS * (len(TEACHERS) + 1)).items():
+        counts[name] += c
+    diff = max(abs(scored[0][k] - v) for k, v in numbers.items())
+    if not diff <= CLI_AP_TOL:
+        raise AssertionError(f'evaluate CLI on best.0 {scored} against the '
+                             f'train CLI\'s {table}')
+    with open(Path(eval_over['exp_name']) / 'resources.0.csv',
+              newline='') as f:
+        fps = float(next(csv.DictReader(f))['FramesPerSec'])
+    evaluate_cli = {'seconds': eval_s, 'frames_per_s': fps,
+                    'max_diff_to_train_cli': diff}
+    print(f'{card} | evaluate CLI D2@768 batch {batch} on best.0: '
+          + json.dumps(evaluate_cli), flush=True)
+    for name in ('checkpoint.0', 'best.0', 'only_parameters_student_best.0'):
+        (exp / name).unlink()          # hundreds of MB; logs and CSVs stay
+    shutil.rmtree(models)
+    (root / 'student.pth').unlink()
+    del teachers, files, student_sd, loads
+    sections['evaluate CLI'] = time.perf_counter() - t0
+
+    # (4) mp3_to_pkl on the card, held to the same frontend on the CPU
+    rng = np.random.default_rng(seed)
+    clips = root / 'audio_ds'
+    lengths = []
+    for i in range(32):
+        n = int(rng.integers(44100, 2 * 44100)) | 1
+        folder = clips / f'drive_{i % 4}' / 'audio'
+        folder.mkdir(parents=True, exist_ok=True)
+        tt = np.arange(n) / 44100.0
+        write_wav(folder / f'{i:04d}.wav',
+                  0.3 * np.sin(2 * np.pi * (200 + 40 * i) * tt)
+                  * (1 + 0.5 * np.sin(tt * 7)) + 0.05 * rng.standard_normal(n),
+                  44100)
+        lengths.append(n)
+    # the CLI reads a directory holding 'drive' as one drive (audio/*):
+    # where the checkout's own path holds the word, drive by drive
+    dirs = [str(clips)] if 'drive' not in str(clips) else \
+        sorted(str(d) for d in clips.iterdir())
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):   # a line per file
+        written = [w for d in dirs
+                   for w in cli_mp3_to_pkl.main(['--dir', d])]
+    torch.cuda.synchronize()
+    mp3_s = time.perf_counter() - t
+    if len(written) != len(lengths):
+        raise AssertionError(f'mp3_to_pkl wrote {len(written)} pickles')
+    on_card = {}
+    for path in written:
+        with open(path, 'rb') as f:
+            on_card[path] = pickle.load(f)
+        n = len(cli_mp3_to_pkl.decode_audio(path[:-4] + '.wav'))
+        got = on_card[path]
+        if got.shape != (80, 1 + n // 256) or not np.isfinite(got).all():
+            raise AssertionError(f'{path}: shape {got.shape}')
+    # the same frontend on the CPU, writing over the same pickles
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_mp3_to_pkl.process_files(
+            sorted(p[:-4] + '.wav' for p in written), device='cpu')
+    worst = 0.0
+    for path, got in on_card.items():
+        with open(path, 'rb') as f:
+            worst = max(worst, float(np.abs(got - pickle.load(f)).max()))
+    if not worst <= CLI_DB_TOL:
+        raise AssertionError(f'mp3_to_pkl: card and CPU differ by {worst} dB')
+    shutil.rmtree(clips)
+    mp3 = {'clips': len(lengths), 'seconds': mp3_s,
+           'clips_per_s': len(lengths) / mp3_s,
+           'audio_s': sum(lengths) / 44100.0,
+           'max_abs_db_diff_to_cpu': worst}
+    print(f'{card} | mp3_to_pkl on the card: ' + json.dumps(mp3), flush=True)
+    sections['mp3_to_pkl'] = time.perf_counter() - t0
+    print(f'cli phase seconds elapsed: {json.dumps(sections)}', flush=True)
+    return {'counts': counts, 'train_cli': train_cli,
+            'evaluate_cli': evaluate_cli, 'mp3_to_pkl': mp3,
+            'sections': sections}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     p.add_argument('--seed', type=int, default=0)
@@ -1045,6 +1341,7 @@ def main(argv=None) -> int:
     served = slice_phase(a.batch, a.seed, device)
     taught = teacher_phase(a.batch, a.seed, device, card)
     trained = train_phase(a.batch, a.seed, device, card)
+    clis = cli_phase(a.batch, a.seed, device, card)
 
     kernels = []
     for name, t in totals.items():
@@ -1052,7 +1349,7 @@ def main(argv=None) -> int:
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES,
             'launches': (served['counts'][name] + taught['counts'][name]
-                         + trained['counts'][name]),
+                         + trained['counts'][name] + clis['counts'][name]),
             'max_abs_err': t['max_abs_err'], 'ms': t['ms'],
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': ('bytes' if t['bound_bytes_ms'] * 2 >= t['bound_ms']
@@ -1063,7 +1360,8 @@ def main(argv=None) -> int:
         'card': card, 'kind': kind, 'torch': torch.__version__,
         'cuda': torch.version.cuda, 'batch': a.batch, 'seed': a.seed,
         'build_s': build_s, 'kernels': kernels, 'blocks': rows,
-        'slice': served, 'teachers': taught, 'train': trained}, indent=1))
+        'slice': served, 'teachers': taught, 'train': trained,
+        'cli': clis}, indent=1))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

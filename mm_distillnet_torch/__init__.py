@@ -19,5 +19,11 @@ loader (`config.py`, `data/`), the metrics (`utils/metrics.py`) and
 distillation step with the teachers on the same kernels
 (`distill/train_step.py`), optimizers and schedulers (`train/optim.py`),
 checkpoints (`train/checkpoint.py`), run logging (`utils/`) and
-`train.trainer.train`.
+`train.trainer.train`; and the system's entry points: the CLIs
+(`python -m mm_distillnet_torch.cli.train`, `...cli.evaluate`,
+`...cli.mp3_to_pkl`), the model registry with reference `.pth` loading
+(`models/registry.py`, `convert/weights.py`), the multi-modal generator
+and StereoSoundNet (`models/`), the dataset factory (`data/factory.py`),
+the log-mel frontend (`ops/audio.py`) and BN recalibration
+(`train/bn_recalibration.py`).
 """

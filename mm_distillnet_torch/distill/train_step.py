@@ -48,6 +48,7 @@ from ..device import resolve_device
 from ..losses.aux_losses import attention_transfer_loss, distill_kl
 from ..losses.focal import focal_loss
 from ..losses.mta import mta_loss
+from ..models.efficientdet_generator import EfficientDetGenerator
 from ..models.fused_forward import make_eval_forward
 from ..ops.postprocess import detections_to_labels
 from ..ops.resize import maybe_stretch_mel_axis
@@ -90,10 +91,12 @@ class TrainState:
 
 
 class Teacher(NamedTuple):
-    """A frozen teacher: its eval forward and which features it hands to
-    the KD loss."""
+    """A frozen teacher: its eval forward, which features it hands to the
+    KD loss and, for a generator, the modalities it reads (a plain teacher
+    reads its own modality)."""
     forward: Any
     features_from: str
+    modalities: Optional[Tuple[str, ...]] = None
 
 
 class TeacherTargets(NamedTuple):
@@ -111,19 +114,17 @@ def make_teachers(teacher_models: Mapping[str, nn.Module],
                   device='cuda') -> Dict[str, Teacher]:
     """{modality: Teacher}: each teacher frozen once, in eval mode. Its
     weights are `teacher_variables[modality]` (a state_dict) or, without
-    them, the module's own. With `fused` its backbone runs the MBConv
-    kernels."""
+    them, the module's own. With `fused` its backbone (each of a
+    generator's backbones) runs the MBConv kernels."""
     teachers = {}
     for m, model in teacher_models.items():
-        if hasattr(model, 'modalities'):
-            raise NotImplementedError(
-                f'teacher {m!r} is a generator teacher; it waits for '
-                'models/efficientdet_generator.py')
         sd = model.state_dict() if teacher_variables is None \
             else teacher_variables[m]
         teachers[m] = Teacher(
             make_eval_forward(model, sd, image_size, fused, dtype, device),
-            model.features_from)
+            model.features_from,
+            tuple(model.modalities)
+            if isinstance(model, EfficientDetGenerator) else None)
     return teachers
 
 
@@ -163,10 +164,13 @@ def average_teacher_features_batch01(features: List[torch.Tensor]
 def _teacher_forward(teachers: Mapping[str, Teacher],
                      batch: Mapping[str, torch.Tensor]):
     """{modality: (classification, regression, features, logits)} of the
-    frozen teachers' eval forwards (reference train_methods.py:891-893)."""
+    frozen teachers' eval forwards (reference train_methods.py:891-893); a
+    generator teacher reads a dict of its modalities."""
     outs = {}
     for modality, teacher in teachers.items():
-        o = teacher.forward(batch[modality])
+        x = batch[modality] if teacher.modalities is None \
+            else {m: batch[m] for m in teacher.modalities}
+        o = teacher.forward(x)
         feats = (list(o.features) if teacher.features_from == 'efficientnet'
                  else [o.align_features])
         outs[modality] = (o.classification, o.regression, feats, o.logits)

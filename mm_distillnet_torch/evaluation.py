@@ -21,9 +21,9 @@ and its prediction loops (get_predictions_multiteacher utils.py:1720-1890):
 Weights are state_dicts (convert/weights.py carries them over from the
 reference's variable trees). With config `fused_inference=True` the
 student's and every teacher's backbone run the hand-written MBConv kernels
-through models/fused_forward.py. Not ported, and raising
-NotImplementedError: `quant_inference`, `approx_topk`, generator teachers
-(models/efficientdet_generator.py) and `eval_devices > 1`
+through models/fused_forward.py (a generator teacher's, each of its
+per-modality backbones). Not ported, and raising NotImplementedError:
+`quant_inference`, `approx_topk` and `eval_devices > 1`
 (parallel/mesh.py).
 """
 from __future__ import annotations
@@ -44,6 +44,7 @@ from .config import (compute_dtype_from, student_input_key,
 from .data.loader import DataLoader
 from .device import resolve_device
 from .distill.pseudo_labels import fuse_teacher_labels, teacher_detections
+from .models.efficientdet_generator import EfficientDetGenerator
 from .models.fused_forward import make_fused_predictor
 from .ops.anchors import anchor_table
 from .ops.postprocess import detections_to_labels, postprocess_detections
@@ -153,14 +154,10 @@ def make_fused_teacher_fn(teacher_models: Dict[str, Any], image_size: int,
     teacher_models: {modality: module}; the variables are {modality:
     state_dict}. With config `fused_inference=True` give `teacher_variables`
     here: each teacher's weights are folded once and its forward runs the
-    MBConv kernels."""
+    MBConv kernels. A generator teacher reads a dict of its modalities,
+    the compact audio stretched first."""
     _refuse_unported(config, mesh)
     dev = resolve_device(device)
-    for modality, model in teacher_models.items():
-        if hasattr(model, 'modalities'):
-            raise NotImplementedError(
-                f'teacher {modality!r} is a generator teacher; it waits for '
-                'models/efficientdet_generator.py')
     if teacher_variables is None and \
             config.getboolean('fused_inference', fallback=False):
         raise ValueError('fused_inference folds the weights once: pass '
@@ -178,7 +175,15 @@ def make_fused_teacher_fn(teacher_models: Dict[str, Any], image_size: int,
         pred_to_label = torch.as_tensor(pred_to_label, device=dev)
         per_teacher = []
         for modality, forward in forwards.items():
-            x = torch.as_tensor(batch[modality], device=dev)
+            model = teacher_models[modality]
+            if isinstance(model, EfficientDetGenerator):
+                x = {m: torch.as_tensor(batch[m], device=dev)
+                     for m in model.modalities}
+                if 'audio' in x:
+                    x['audio'] = maybe_stretch_mel_axis(x['audio'],
+                                                        image_size)
+            else:
+                x = torch.as_tensor(batch[modality], device=dev)
             out = forward(None if teacher_variables is None
                           else teacher_variables[modality], x)
             dets = teacher_detections(out.classification, out.regression,

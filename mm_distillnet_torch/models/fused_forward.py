@@ -11,7 +11,8 @@ Plan spec syntax is the reference's: 'pallas:0-15,flax:16-22'. The word
 kernels. `flax` means the port's unfused `MBConvBlock`. The default sends
 every block to the kernels; there is no VMEM-budget fallback (the kernels
 tile space, so every D2@768 block fits), and a block the kernels cannot
-take raises.
+take raises. A generator's per-modality backbones fold the same way, one
+`FusedBackbone` each (`make_fused_predictor`).
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops.fused_mbconv import (PROJECT_BM, check_kernel_fits, fold_mbconv,
                                 mbconv_fused)
-from .efficientdet import BACKBONE_COEF, DetectorOutput, EfficientDet, nchw, nhwc
+from .efficientdet import BACKBONE_COEF, DetectorOutput, nchw, nhwc
+from .efficientdet_generator import EfficientDetGenerator
 from .efficientnet import BlockArgs, MBConvBlock, expand_block_args
 from .layers import BN_EPS, pad_same_nchw, swish
 
@@ -56,16 +58,19 @@ def _sub_state(sd: Mapping[str, torch.Tensor], prefix: str
 class FusedBackbone:
     """Folded weights + dispatch plan for one trained backbone.
 
-    state_dict is the detector's (keys `backbone_net.model.*`)."""
+    state_dict is the detector's; the backbone's keys start with `prefix`
+    (`backbone_net.model.`, or a generator's
+    `model_backbones.<modality>.model.`)."""
 
     def __init__(self, state_dict: Mapping[str, torch.Tensor],
                  compound_coef: int, image_size: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 plan_spec: Optional[str] = None, device='cuda'):
+                 plan_spec: Optional[str] = None, device='cuda',
+                 prefix: str = _BACKBONE):
         self.device = resolve_device(device)
         self.dtype = dtype
         self.blocks = expand_block_args(compound_coef)
-        sd = _sub_state(state_dict, _BACKBONE)
+        sd = _sub_state(state_dict, prefix)
 
         # stem: conv + folded BN
         scale = sd['_bn0.weight'].float() / torch.sqrt(
@@ -129,16 +134,21 @@ class FusedBackbone:
         return feature_maps[1:]
 
 
-def make_fused_predictor(model: EfficientDet,
-                         state_dict: Mapping[str, torch.Tensor],
+def make_fused_predictor(model, state_dict: Mapping[str, torch.Tensor],
                          image_size: int, plan_spec: Optional[str] = None,
                          dtype: torch.dtype = torch.bfloat16,
-                         device='cuda') -> Callable[[torch.Tensor],
-                                                    DetectorOutput]:
-    """fn(x (B, H, W, C)) -> DetectorOutput through the fused backbone.
+                         device='cuda') -> Callable[..., DetectorOutput]:
+    """fn(x) -> DetectorOutput through the fused backbone: x (B, H, W, C),
+    or for an `EfficientDetGenerator` a dict {modality: (B, H, W, C)}.
 
-    The backbone's weights are folded once; BiFPN and heads are a copy of
-    `model` holding `state_dict`, on `device` in `dtype`."""
+    The backbone's weights are folded once (a generator's, one
+    `FusedBackbone` per modality its eval forward runs); BiFPN and heads
+    are a copy of `model` holding `state_dict`, on `device` in `dtype`.
+    The function carries its backbone as `.backbone` (a generator's as
+    `.backbones`, by modality)."""
+    if isinstance(model, EfficientDetGenerator):
+        return _fused_generator(model, state_dict, image_size, plan_spec,
+                                dtype, device)
     dev = resolve_device(device)
     backbone = FusedBackbone(state_dict, BACKBONE_COEF[model.compound_coef],
                              image_size, dtype=dtype, plan_spec=plan_spec,
@@ -158,16 +168,47 @@ def make_fused_predictor(model: EfficientDet,
     return forward
 
 
-def make_eval_forward(model: EfficientDet,
+def _fused_generator(model: EfficientDetGenerator,
+                     state_dict: Mapping[str, torch.Tensor], image_size: int,
+                     plan_spec: Optional[str], dtype: torch.dtype, device):
+    dev = resolve_device(device)
+    backbones = {
+        m: FusedBackbone(state_dict, BACKBONE_COEF[model.compound_coef],
+                         image_size, dtype=dtype, plan_spec=plan_spec,
+                         device=dev, prefix=f'model_backbones.{m}.model.')
+        for m in model.active_modalities(train=False)}
+    head = copy.deepcopy(model)
+    del head.model_backbones
+    head.load_state_dict({k: v for k, v in state_dict.items()
+                          if not k.startswith('model_backbones.')})
+    head = head.to(dev, dtype).eval()
+
+    @torch.no_grad()
+    def forward(x: Mapping[str, torch.Tensor]) -> DetectorOutput:
+        pyramids = {}
+        for m, backbone in backbones.items():
+            if m not in x:
+                raise ValueError(f'missing modality input: {m}')
+            feats = backbone(x[m])
+            pyramids[m] = head.model_necks[m](
+                tuple(nchw(f.to(dtype)) for f in feats[1:4]))
+        return head.heads(pyramids)
+
+    forward.backbones = backbones
+    return forward
+
+
+def make_eval_forward(model,
                       state_dict: Mapping[str, torch.Tensor],
                       image_size: int, fused: bool,
                       dtype: torch.dtype = torch.bfloat16,
                       device='cuda') -> Callable[[torch.Tensor],
                                                  DetectorOutput]:
-    """fn(x (B, H, W, C)) -> DetectorOutput of a frozen network in eval
-    mode, without grad: with `fused`, through the fused backbone (the
-    MBConv kernels, weights folded once); else a copy of `model` holding
-    `state_dict`, on `device` in `dtype`."""
+    """fn(x) -> DetectorOutput of a frozen network (a detector on (B, H, W,
+    C), or a generator on a dict of them) in eval mode, without grad: with
+    `fused`, through the fused backbone (the MBConv kernels, weights folded
+    once); else a copy of `model` holding `state_dict`, on `device` in
+    `dtype`."""
     if fused:
         return make_fused_predictor(model, state_dict, image_size,
                                     dtype=dtype, device=device)
@@ -176,7 +217,7 @@ def make_eval_forward(model: EfficientDet,
     net = net.to(resolve_device(device), dtype).eval().requires_grad_(False)
 
     @torch.no_grad()
-    def forward(x: torch.Tensor) -> DetectorOutput:
+    def forward(x) -> DetectorOutput:
         return net(x)
 
     return forward

@@ -218,3 +218,42 @@ def test_train_step_runs_the_teachers_on_the_kernels(device):
         losses.append(torch.stack([metrics[k] for k in ts.METRICS]))
     assert torch.isfinite(losses[0]).all()
     assert torch.equal(losses[0], losses[1])
+
+
+@pytest.mark.parametrize('mode,backbones', [('concat', 3), ('switch', 1)])
+def test_generator_teacher_backbones_run_the_kernels(mode, backbones,
+                                                     device):
+    """A generator teacher (audio, rgb, thermal) under fused_inference at
+    D2, 256 px, batch 2: each backbone its eval forward runs folds into
+    the kernels (23 launches of each kernel per backbone), and the outputs
+    agree with the same predictor on the kernels' plain versions
+    (correlation > 0.999, the serving path's gate in chip_smoke.py)."""
+    from mm_distillnet_torch.models import fused_forward
+    from mm_distillnet_torch.models.efficientdet_generator import \
+        EfficientDetGenerator
+
+    size = 256
+    channels = {'audio': 8, 'rgb': 3, 'thermal': 1}
+    torch.manual_seed(0)
+    gen = EfficientDetGenerator(tuple(channels), 20, 2, mode,
+                                in_channels=channels).eval()
+    g = torch.Generator(device=device).manual_seed(1)
+    x = {m: torch.randn((2, size, size, c), generator=g, device=device)
+         for m, c in channels.items()}
+    forward = fused_forward.make_fused_predictor(gen, gen.state_dict(), size,
+                                                 device=device)
+    fm.reset_launches()
+    got = forward(x)
+    torch.cuda.synchronize()
+    assert dict(fm.launches) == {n: 23 * backbones for n in fm.launches}
+    saved = fused_forward.mbconv_fused
+    fused_forward.mbconv_fused = fm.mbconv_fused_reference
+    try:
+        want = forward(x)
+    finally:
+        fused_forward.mbconv_fused = saved
+    for f in ('classification', 'regression', 'logits'):
+        a = getattr(got, f).double().flatten()
+        b = getattr(want, f).double().flatten()
+        assert torch.isfinite(a).all()
+        assert float(torch.corrcoef(torch.stack([a, b]))[0, 1]) > 0.999, f

@@ -25,6 +25,8 @@ from mm_distillnet_torch.convert.weights import state_dict_from_flax
 from mm_distillnet_torch.data.loader import collate
 from mm_distillnet_torch.data.synthetic import SyntheticMultimodal
 from mm_distillnet_torch.models.efficientdet import EfficientDet
+from mm_distillnet_torch.models.efficientdet_generator import \
+    EfficientDetGenerator
 from mm_distillnet_torch.ops import fused_mbconv
 
 from .test_torch_helpers import corr, filled_variables, nhwc_input, to_jax
@@ -237,12 +239,17 @@ def test_unported_options_raise(setup, key, match):
 
 
 def test_generator_teacher_and_multi_device_eval_raise(setup):
+    """A generator teacher runs (tests/test_torch_generator.py holds it to
+    the reference) and reads every one of its modalities: a batch without
+    one raises. Multi-device evaluation still raises."""
     nets = setup['nets']
-    generator = EfficientDet(20, -1, 3)
-    generator.modalities = ('rgb', 'thermal')
-    with pytest.raises(NotImplementedError, match='generator'):
-        ev.make_fused_teacher_fn({'rgb': generator}, SIZE, setup['tcfg'],
-                                 device='cpu')
+    generator = EfficientDetGenerator(('rgb', 'sonar'), 20, -1,
+                                      in_channels={'sonar': 2})
+    fn = ev.make_fused_teacher_fn({'rgb': generator}, SIZE, setup['tcfg'],
+                                  device='cpu')
+    with pytest.raises(KeyError, match='sonar'):
+        fn({'rgb': generator.state_dict()}, setup['batch'],
+           setup['class_valid'], setup['lut'])
     cfg = default_config(**{**SETTINGS, 'eval_devices': 2})
     with pytest.raises(NotImplementedError, match='eval_devices'):
         ev.evaluate({'rgb': (nets['rgb'][2], nets['rgb'][3])},
