@@ -99,8 +99,29 @@ Phases, each of which fails the run on any error:
      evaluate), the evaluate CLI's seconds and FramesPerSec and
      mp3_to_pkl's clips per second are printed beside the card's name and
      power limit;
-  8. report: one JSON line of kernel results (launches summed over the
-     serving, teacher, train and cli phases), then as the last line
+  8. data: the real-dataset path without cv2. The port's host decoder
+     (csrc/image_decode.cpp, built with the host C++ compiler beside the
+     kernels) decodes the committed fixtures (tests/fixtures/torch_data:
+     1920x1080 JPEGs at 4:2:0 and a 16-bit PNG under a .jpg name), each
+     array held to the SHA-256 of cv2.imread's recorded beside them (any
+     mismatch fails the run), and times 20 decodes of each. A tree in the
+     Freiburg layout (16 frames per split, the fixtures hard-linked, 8
+     seeded (80, 173) pickles and 1 s .wav clips per frame) is written
+     under build/; MultimodalDetection.__getitem__ is timed per frame, the
+     loader's frames/s over 32 frames (batch 8, the config's 6 workers),
+     the same frames one per task on 6 threads, and one batch's collate.
+     The train CLI runs the shipped config with its own dataset
+     on that tree (fast_run, batch 8, fused_inference): exactly 460
+     launches of each kernel, derived as in phase 7; the evaluate CLI on
+     its best.0 (test split): 184. Two steps of
+     traditional_nms_kdlist_augmented then run on loader batches whose
+     audio yield_batch mixed (merge_audios of the .wav clips): 138
+     launches of each kernel. Decode ms, __getitem__ ms, loader frames/s,
+     the CLIs' seconds by part and FramesPerSec, and the kdlist mix's ms
+     per batch and the steps' seconds are printed beside the card's name
+     and power limit;
+  9. report: one JSON line of kernel results (launches summed over the
+     serving, teacher, train, cli and data phases), then as the last line
      {"ok": true, "device": {...}}.
 
 Per-block numbers go to chiprun_out/chip_smoke.json. Without a CUDA device
@@ -112,9 +133,11 @@ import argparse
 import contextlib
 import copy
 import csv
+import hashlib
 import io
 import json
 import math
+import os
 import pickle
 import re
 import shutil
@@ -123,6 +146,7 @@ import subprocess
 import sys
 import time
 import wave
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -131,9 +155,11 @@ import torch
 from mm_distillnet_torch.config import (compute_dtype_from, config_from_dict,
                                         default_config, load_config,
                                         transfer_dtype_from)
+from mm_distillnet_torch.data import decode
 from mm_distillnet_torch.data.base import (prediction_to_label_lut,
                                            valid_prediction_ids)
-from mm_distillnet_torch.data.loader import collate
+from mm_distillnet_torch.data.loader import DataLoader, collate
+from mm_distillnet_torch.data.multimodal import MultimodalDetection
 from mm_distillnet_torch.data.synthetic import SyntheticMultimodal
 from mm_distillnet_torch.distill import train_step as ts
 from mm_distillnet_torch.evaluation import (evaluate, make_fused_teacher_fn,
@@ -165,8 +191,14 @@ SOURCES = {'mbconv_expand_dw': 'mm_distillnet_torch/csrc/mbconv_expand_dw.cu',
            'mbconv_se': 'mm_distillnet_torch/csrc/mbconv.cu',
            'mbconv_project': 'mm_distillnet_torch/csrc/mbconv_project.cu'}
 REPLACES = 'mm_distillnet_tpu/ops/pallas_mbconv.py:137'
-OUT_DIR = Path(__file__).resolve().parent / 'chiprun_out'
-RECIPE = Path(__file__).resolve().parent / 'configs' / 'mm-distillnet.cfg'
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / 'chiprun_out'
+RECIPE = ROOT / 'configs' / 'mm-distillnet.cfg'
+FIXTURES = ROOT / 'tests' / 'fixtures' / 'torch_data'
+# how the multimodal dataset reads each kind of frame
+DATASET_READS = {'rgb.jpg': 'IMREAD_COLOR', 'depth.jpg': 'IMREAD_COLOR',
+                 'thermal.jpg': 'IMREAD_ANYDEPTH'}
+SPLIT_FRAMES = 16   # frames per split of the data phase's tree
 # kernel plan against plain-version plan: the largest relative difference
 # of one teacher's MTA loss at one level (seeds 0-2: 1.04e-7, 1.98e-7,
 # 1.32e-7; PERF.md)
@@ -1114,6 +1146,30 @@ def write_wav(path: Path, pcm: np.ndarray, rate: int) -> None:
                       .tobytes())
 
 
+def write_seeded_networks(dataset, models: Path, student_path: Path,
+                          batch: int, seed: int, device):
+    """Seeded D2 teachers and student, BN statistics from the dataset's
+    first batch, written in the reference's .pth layout (teachers under
+    `models` as the registry names them; the rgb teacher carries a marker
+    value in bifpn.0.p6_w1). Returns the teachers' state_dicts, the
+    student's and the networks by modality ('audio' for the student)."""
+    host = collate([dataset[i] for i in range(batch)])
+    inputs = trainer.device_batch(host, device, None)
+    files, nets = {}, {}
+    for i, m in enumerate(TEACHERS):
+        nets[m] = net = seeded_detector(seed + 10 + i, batch, device,
+                                        inputs[m])
+        if m == 'rgb':
+            with torch.no_grad():
+                net.bifpn[0].p6_w1.copy_(torch.tensor([0.625, 0.375]))
+        files[m] = write_reference_pth(
+            net, models / f'yet-another-efficientdet-d2-{m}.pth')
+    nets['audio'] = seeded_detector(seed, batch, device,
+                                    maybe_stretch_mel_axis(inputs['audio'],
+                                                           IMAGE_SIZE))
+    return files, write_reference_pth(nets['audio'], student_path), nets
+
+
 def cli_phase(batch: int, seed: int, device, card: str):
     """The train, evaluate and mp3_to_pkl CLIs as a user runs them."""
     t0 = time.perf_counter()
@@ -1134,20 +1190,9 @@ def cli_phase(batch: int, seed: int, device, card: str):
     # (1) the files: seeded D2 networks, BN statistics from the frames
     # each will see, in the reference's .pth layout
     train_set = SyntheticMultimodal(config, 'train')
-    host = collate([train_set[i] for i in range(batch)])
-    inputs = trainer.device_batch(host, device, None)
-    files = {}
-    for i, m in enumerate(TEACHERS):
-        net = seeded_detector(seed + 10 + i, batch, device, inputs[m])
-        if m == 'rgb':
-            with torch.no_grad():
-                net.bifpn[0].p6_w1.copy_(torch.tensor([0.625, 0.375]))
-        files[m] = write_reference_pth(
-            net, models / f'yet-another-efficientdet-d2-{m}.pth')
-    student = seeded_detector(seed, batch, device, maybe_stretch_mel_axis(
-        inputs['audio'], IMAGE_SIZE))
-    student_sd = write_reference_pth(student, root / 'student.pth')
-    del net, student, inputs
+    files, student_sd, nets = write_seeded_networks(
+        train_set, models, root / 'student.pth', batch, seed, device)
+    del nets
     sections = {'files': time.perf_counter() - t0}
 
     # (2) the train CLI; its parts timed through the functions it calls
@@ -1301,6 +1346,292 @@ def cli_phase(batch: int, seed: int, device, card: str):
             'evaluate_cli': evaluate_cli, 'mp3_to_pkl': mp3,
             'sections': sections}
 
+def write_freiburg_tree(root: Path, images: dict, frames: int, seed: int,
+                        clip_s: float = 1.0) -> dict:
+    """A tree in the Freiburg dataset's layout under `root`: per split
+    (train, val, test) `frames` ids `drive_k/secs_nsecs_code` (nine-digit
+    nsecs) in `{split}_all.txt`, listed out of time order with one id whose
+    nsecs are too short (the dataset skips it); per frame the files of
+    `images` (modality -> list of paths; frame i takes path i % len)
+    hard-linked (copied across file systems) as fl_rgb, fl_ir_aligned and
+    fl_rgb_depth, and for each of the 8 microphones a seeded .wav clip of
+    `clip_s` s at 44.1 kHz and the (80, 1 + n // 256) float32 log-mel
+    pickle that stands for it. Returns split -> the valid ids."""
+    rng = np.random.default_rng(seed)
+    n = int(clip_s * 44100)
+    tt = np.arange(n) / 44100.0
+    folders = {'rgb': ('fl_rgb', 'fl_rgb_{}.jpg'),
+               'thermal': ('fl_ir_aligned', 'fl_ir_aligned_{}.jpg'),
+               'depth': ('fl_rgb_depth', 'fl_rgb_{}.jpg')}
+    ids, k = {}, 0
+    for split in ('train', 'val', 'test'):
+        ids[split] = []
+        for i in range(frames):
+            drive = f'drive_{k % 3}'
+            ts = f'{1500000000 + k // 2}_{100000000 + 37 * k:09d}_{k:x}'
+            frame_id = f'{drive}/{ts}'
+            for m, (folder, name) in folders.items():
+                dst = root / drive / folder / name.format(ts)
+                dst.parent.mkdir(parents=True, exist_ok=True)
+                src = images[m][i % len(images[m])]
+                try:
+                    os.link(src, dst)
+                except OSError:
+                    shutil.copyfile(src, dst)
+            audio = root / drive / 'audio'
+            audio.mkdir(parents=True, exist_ok=True)
+            for mic in range(8):
+                pcm = 0.3 * np.sin(2 * np.pi * (180 + 25 * mic + 3 * k) * tt) \
+                    + 0.05 * rng.standard_normal(n)
+                write_wav(audio / f'audio_{mic}_{ts}.wav', pcm, 44100)
+                spec = rng.normal(-40, 15, (80, 1 + n // 256)).clip(-80, 0)
+                with open(audio / f'audio_{mic}_{ts}.pkl', 'wb') as f:
+                    pickle.dump(spec.astype(np.float32), f, protocol=2)
+            ids[split].append(frame_id)
+            k += 1
+        listed = list(reversed(ids[split])) + [f'drive_0/1400000000_12345_x']
+        (root / f'{split}_all.txt').write_text('\n'.join(listed) + '\n')
+    return ids
+
+
+def decoder_checks(card: str, reps: int = 20) -> dict:
+    """The committed fixtures through the port's decoder: each array's
+    SHA-256 against the one cv2.imread gave (hashes.json), then the median
+    ms of `reps` decodes of each file as the multimodal dataset reads it."""
+    with open(FIXTURES / 'hashes.json') as f:
+        hashes = json.load(f)
+    for name, by_flag in hashes.items():
+        for flag in ('IMREAD_COLOR', 'IMREAD_ANYDEPTH', 'IMREAD_UNCHANGED'):
+            got = decode.imread(str(FIXTURES / name), getattr(decode, flag))
+            digest = hashlib.sha256(got.tobytes()).hexdigest()
+            want = by_flag[flag]
+            if (digest != want['sha256'] or list(got.shape) != want['shape']
+                    or str(got.dtype) != want['dtype']):
+                raise AssertionError(f'decoder: {name} {flag} is not '
+                                     'cv2.imread\'s array')
+    times = {}
+    for name, flag in DATASET_READS.items():
+        path, value = str(FIXTURES / name), getattr(decode, flag)
+        decode.imread(path, value)
+        ms = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            decode.imread(path, value)
+            ms.append((time.perf_counter() - t) * 1e3)
+        times[name] = {'flag': flag, 'bytes': hashes[name]['bytes'],
+                       'median_ms': statistics.median(ms)}
+    print(f'{card} | decoder: 9 arrays equal to cv2.imread\'s (SHA-256); '
+          f'median ms of {reps} decodes: ' + json.dumps(times), flush=True)
+    return times
+
+
+def data_phase(batch: int, seed: int, device, card: str):
+    """The real-dataset path: the decoder, a Freiburg-layout tree, the
+    dataset and loader, the train and evaluate CLIs on the shipped config
+    with its own dataset, and two kdlist steps with the dataset's mix."""
+    t0 = time.perf_counter()
+    decode_ms = decoder_checks(card)
+    sections = {'decoder': time.perf_counter() - t0}
+
+    # (2) the tree: 16 frames per split, the fixtures hard-linked
+    work = ROOT / 'build' / 'data_smoke'
+    shutil.rmtree(work, ignore_errors=True)
+    tree = work / 'freiburg'
+    images = {m: [FIXTURES / f'{m}.jpg'] for m in TEACHERS}
+    ids = write_freiburg_tree(tree, images, SPLIT_FRAMES, seed)
+    sections['tree'] = time.perf_counter() - t0
+
+    # (3) the dataset and the loader on the shipped config
+    out = OUT_DIR / 'data'
+    shutil.rmtree(out, ignore_errors=True)
+    models = work / 'trained_models'
+    models.mkdir(parents=True)
+    overwrite = dict(
+        data_path=str(tree), fast_run=True, num_epoches=1, val_interval=1,
+        batch_size=batch, eval_batch_size=batch, fused_inference=True,
+        resume=False, exp_name=str(out / 'exp'), saved_path=str(models),
+        log_path=str(out / 'tensorboard'),
+        pretrain_checkpoint=str(work / 'student.pth'))
+    config = load_config(str(RECIPE), json.dumps(overwrite))
+    if config['dataset'] != 'MultimodalDetection':
+        raise AssertionError(f'the shipped dataset is {config["dataset"]}')
+    train_set = MultimodalDetection(config, 'train')
+    if train_set.ids != sorted(ids['train'], key=lambda i: (
+            int(''.join(i.split('/')[1].split('_')[:2])), i)):
+        raise AssertionError('the dataset did not sort and filter the ids')
+    item_ms = []
+    for i in range(len(train_set)):
+        t = time.perf_counter()
+        sample = train_set[i]
+        item_ms.append((time.perf_counter() - t) * 1e3)
+        for m, c in (('rgb', 3), ('thermal', 1), ('depth', 3), ('audio', 8)):
+            if sample[m].shape != (IMAGE_SIZE, IMAGE_SIZE, c) or \
+                    not np.isfinite(sample[m]).all():
+                raise AssertionError(f'{m} of {sample["id"]}: '
+                                     f'{sample[m].shape}')
+    loader = DataLoader(train_set, batch, shuffle=True,
+                        num_workers=config.getint('num_workers'))
+    t = time.perf_counter()
+    seen = 0
+    for epoch in range(2):                     # 32 frames
+        loader.set_epoch(epoch)
+        seen += sum(len(b['id']) for b in loader)
+    loader_s = time.perf_counter() - t
+    # what bounds the loader: the same 32 frames one per task on as many
+    # threads (the loader runs a batch's frames on one thread and keeps
+    # prefetch + 1 batches in flight), and one batch's collate
+    workers = config.getint('num_workers')
+    t = time.perf_counter()
+    with ThreadPoolExecutor(workers) as pool:
+        first = [s for i, s in enumerate(pool.map(
+            train_set.__getitem__, list(range(len(train_set))) * 2))
+            if i < batch]
+    threaded_s = time.perf_counter() - t
+    t = time.perf_counter()
+    collate(first)
+    collate_ms = (time.perf_counter() - t) * 1e3
+    dataset = {'getitem_ms_median': statistics.median(item_ms),
+               'getitem_ms': item_ms,
+               'loader_frames': seen, 'loader_s': loader_s,
+               'loader_frames_per_s': seen / loader_s,
+               'frame_tasks_frames_per_s': 2 * len(train_set) / threaded_s,
+               'collate_ms': collate_ms,
+               'num_workers': workers, 'batch': batch}
+    print(f'{card} | MultimodalDetection D2@768 (1920x1080 JPEG rgb and '
+          'depth, 16-bit PNG thermal, 8 pickles of (80, 173)): '
+          + json.dumps({k: v for k, v in dataset.items()
+                        if k != 'getitem_ms'}), flush=True)
+    sections['dataset and loader'] = time.perf_counter() - t0
+
+    # (4) the train CLI with the shipped dataset, then the evaluate CLI
+    files, _, nets = write_seeded_networks(
+        train_set, models, work / 'student.pth', batch, seed, device)
+    args = ['--config_file', str(RECIPE), '--overwrite',
+            json.dumps(overwrite)]
+    seconds = {}
+    steps = min(2, SPLIT_FRAMES // batch)    # fast_run: two batches
+    expected = 2 * steps * BLOCKS * len(TEACHERS) \
+        + steps * BLOCKS * (len(TEACHERS) + 1)
+    with timed_calls(cli_train, 'load_model', seconds), \
+            timed_calls(cli_train, 'get_dataset', seconds), \
+            timed_calls(trainer, 'make_teachers', seconds), \
+            timed_products(trainer, 'make_train_step', seconds, 'steps'), \
+            timed_products(trainer, 'make_eval_loss_step', seconds,
+                           'validation_steps'), \
+            timed_calls(trainer, 'save_checkpoint', seconds), \
+            timed_calls(cli_train, 'train', seconds), \
+            timed_calls(cli_train, 'evaluate', seconds):
+        torch.cuda.synchronize()
+        fm.reset_launches()       # the main path: counts 0 just before
+        t = time.perf_counter()
+        table = cli_train.main(args)
+        torch.cuda.synchronize()
+        seconds['train_cli'] = time.perf_counter() - t
+        counts = expect_launches('train CLI on the Freiburg tree', expected)
+    numbers = {k: v for k, v in table[0].items()
+               if k not in ('exp_name', 'modality')}
+    if not all(np.isfinite(v) for v in numbers.values()):
+        raise AssertionError(f'train CLI AP table {table}')
+    exp = Path(config['exp_name'])
+    in_train = ('make_teachers', 'steps', 'validation_steps',
+                'save_checkpoint')
+    train_cli = {'seconds': seconds['train_cli'],
+                 'load_models_s': seconds['load_model'],
+                 'datasets_s': seconds['get_dataset'],
+                 'train_s': seconds['train'],
+                 'fold_teachers_s': seconds['make_teachers'],
+                 'train_steps_s': seconds['steps'],
+                 'validation_steps_s': seconds['validation_steps'],
+                 'save_checkpoint_s': seconds['save_checkpoint'],
+                 'train_rest_s': seconds['train']
+                 - sum(seconds[k] for k in in_train),
+                 'final_evaluate_s': seconds['evaluate'],
+                 'launches_per_kernel': expected, 'ap_table': numbers}
+    print(f'{card} | train CLI, shipped config and dataset, D2@768 batch '
+          f'{batch} on the Freiburg tree: ' + json.dumps(train_cli),
+          flush=True)
+    sections['train CLI'] = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    fm.reset_launches()
+    t = time.perf_counter()
+    scored = cli_evaluate.main(['--config_file', str(RECIPE),
+                                '--checkpoint', str(exp / 'best.0'),
+                                '--overwrite', json.dumps(dict(
+                                    overwrite,
+                                    exp_name=str(out / 'exp_eval')))])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    eval_launches = steps * BLOCKS * (len(TEACHERS) + 1)
+    for name, c in expect_launches('evaluate CLI on the Freiburg tree',
+                                   eval_launches).items():
+        counts[name] += c
+    if not all(np.isfinite(v) for k, v in scored[0].items()
+               if k not in ('exp_name', 'modality')):
+        raise AssertionError(f'evaluate CLI AP table {scored}')
+    with open(out / 'exp_eval' / 'resources.0.csv', newline='') as f:
+        fps = float(next(csv.DictReader(f))['FramesPerSec'])
+    evaluate_cli = {'seconds': eval_s, 'frames_per_s': fps,
+                    'launches_per_kernel': eval_launches}
+    print(f'{card} | evaluate CLI on best.0, test split of the Freiburg '
+          'tree: ' + json.dumps(evaluate_cli), flush=True)
+    for name in ('checkpoint.0', 'best.0', 'only_parameters_student_best.0'):
+        (exp / name).unlink()          # hundreds of MB; logs and CSVs stay
+    sections['evaluate CLI'] = time.perf_counter() - t0
+
+    # (5) traditional_nms_kdlist_augmented: the dataset's audio mix on a
+    # loader batch (merge_audios of the .wav clips), then the step
+    kd_config = load_config(str(RECIPE), json.dumps(dict(
+        overwrite, train_method='traditional_nms_kdlist_augmented')))
+    cfg = trainer.distill_config_from(kd_config, IMAGE_SIZE)
+    dtype = compute_dtype_from(kd_config)
+    anchors = torch.as_tensor(anchor_table(IMAGE_SIZE), device=device)
+    class_valid, lut = trainer.label_tables(train_set, NUM_CLASSES, device)
+    frozen = ts.make_teachers({m: nets[m] for m in TEACHERS},
+                              image_size=IMAGE_SIZE, fused=True, dtype=dtype,
+                              device=device)
+    state = ts.init_train_state(nets['audio'], kd_config, device=device)
+    step = ts.make_train_step(frozen, cfg, anchors, class_valid, lut,
+                              compute_dtype=dtype, seed=seed, device=device)
+    mix_rng = np.random.default_rng(seed)
+    kd = {'mix_ms_per_batch': [], 'mix_ms_per_frame': [], 'step_s': [],
+          'losses': []}
+    fm.reset_launches()
+    for host, _ in zip(DataLoader(train_set, batch, shuffle=True,
+                                  num_workers=6), range(2)):
+        t = time.perf_counter()
+        labels, audio = train_set.yield_batch(len(host['id']), host['id'],
+                                              mix_rng)
+        kd['mix_ms_per_batch'].append((time.perf_counter() - t) * 1e3)
+        kd['mix_ms_per_frame'].append(
+            kd['mix_ms_per_batch'][-1] / len(host['id']))
+        if audio.shape != host['audio'].shape or labels != [None] * batch:
+            raise AssertionError(f'yield_batch gave {audio.shape}')
+        host['audio'] = audio.astype(np.float32)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = step(state, trainer.device_batch(
+            host, device, transfer_dtype_from(kd_config)))
+        torch.cuda.synchronize()
+        kd['step_s'].append(time.perf_counter() - t)
+        kd['losses'].append({k: float(v) for k, v in metrics.items()})
+    for name, c in expect_launches('kdlist steps',
+                                   2 * BLOCKS * len(TEACHERS)).items():
+        counts[name] += c
+    if not all(np.isfinite(list(m.values())).all() for m in kd['losses']):
+        raise AssertionError(f'kdlist losses {kd["losses"]}')
+    kd['launches_per_kernel'] = 2 * BLOCKS * len(TEACHERS)
+    print(f'{card} | traditional_nms_kdlist_augmented, 2 steps on '
+          f'yield_batch mixes, D2@768 batch {batch}: ' + json.dumps(kd),
+          flush=True)
+    del nets, frozen, state, step, files
+    shutil.rmtree(work)
+    sections['kdlist'] = time.perf_counter() - t0
+    print(f'data phase seconds elapsed: {json.dumps(sections)}', flush=True)
+    return {'counts': counts, 'decode': decode_ms, 'dataset': dataset,
+            'train_cli': train_cli, 'evaluate_cli': evaluate_cli,
+            'kdlist': kd, 'sections': sections}
+
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -1342,6 +1673,7 @@ def main(argv=None) -> int:
     taught = teacher_phase(a.batch, a.seed, device, card)
     trained = train_phase(a.batch, a.seed, device, card)
     clis = cli_phase(a.batch, a.seed, device, card)
+    data = data_phase(a.batch, a.seed, device, card)
 
     kernels = []
     for name, t in totals.items():
@@ -1349,7 +1681,8 @@ def main(argv=None) -> int:
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES,
             'launches': (served['counts'][name] + taught['counts'][name]
-                         + trained['counts'][name] + clis['counts'][name]),
+                         + trained['counts'][name] + clis['counts'][name]
+                         + data['counts'][name]),
             'max_abs_err': t['max_abs_err'], 'ms': t['ms'],
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': ('bytes' if t['bound_bytes_ms'] * 2 >= t['bound_ms']
@@ -1361,7 +1694,7 @@ def main(argv=None) -> int:
         'cuda': torch.version.cuda, 'batch': a.batch, 'seed': a.seed,
         'build_s': build_s, 'kernels': kernels, 'blocks': rows,
         'slice': served, 'teachers': taught, 'train': trained,
-        'cli': clis}, indent=1))
+        'cli': clis, 'data': data}, indent=1))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

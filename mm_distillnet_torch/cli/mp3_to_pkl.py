@@ -4,9 +4,9 @@
     python -m mm_distillnet_torch.cli.mp3_to_pkl --dir <drive-or-dataset-path> \\
         [--batch_size N] [--device cuda|cpu]
 
-Decoding stays on the host (the stdlib `wave` for .wav, an ffmpeg
-subprocess for .mp3); the STFT, mel and dB math runs batched on the device
-through ops/audio.py. One (80, 1 + n // 256) float32 dB pickle per file,
+Decoding stays on the host (`ops/audio.py` `decode_audio`: the stdlib
+`wave` for .wav, an ffmpeg subprocess for .mp3); the STFT, mel and dB math
+runs batched on the device through ops/audio.py. One (80, 1 + n // 256) float32 dB pickle per file,
 beside it, drop-in for the reference's.
 """
 from __future__ import annotations
@@ -15,49 +15,12 @@ import argparse
 import glob
 import os
 import pickle
-import shutil
-import subprocess
-import wave
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.audio import HOP, SR, melspectrogram, power_to_db
-
-
-def decode_audio(path: str, sr: int = SR) -> np.ndarray:
-    """Decode mp3 / wav to mono float32 PCM at `sr` (librosa.load's
-    semantics: mono mix-down, floats in [-1, 1])."""
-    if path.endswith('.wav'):
-        with wave.open(path, 'rb') as w:
-            n = w.getnframes()
-            raw = w.readframes(n)
-            width = w.getsampwidth()
-            channels = w.getnchannels()
-            rate = w.getframerate()
-        dtype = {1: np.uint8, 2: np.int16, 4: np.int32}[width]
-        pcm = np.frombuffer(raw, dtype=dtype).astype(np.float32)
-        if width == 1:
-            pcm = (pcm - 128.0) / 128.0
-        else:
-            pcm = pcm / float(np.iinfo(dtype).max)
-        if channels > 1:
-            pcm = pcm.reshape(-1, channels).mean(axis=1)
-        if rate != sr:
-            x = np.arange(len(pcm)) / rate
-            xi = np.arange(int(len(pcm) * sr / rate)) / sr
-            pcm = np.interp(xi, x, pcm).astype(np.float32)
-        return pcm
-    if shutil.which('ffmpeg') is None:
-        raise RuntimeError(
-            f'cannot decode {path}: ffmpeg not available (wav is supported '
-            'natively)')
-    out = subprocess.run(
-        ['ffmpeg', '-v', 'quiet', '-i', path, '-f', 'f32le', '-ac', '1',
-         '-ar', str(sr), 'pipe:1'],
-        check=True, stdout=subprocess.PIPE)
-    return np.frombuffer(out.stdout, dtype=np.float32)
+from ..ops.audio import HOP, decode_audio, melspectrogram, power_to_db
 
 
 def process_files(files, batch_size: int = 16, device='cuda'):

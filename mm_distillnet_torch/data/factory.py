@@ -1,26 +1,28 @@
 """Dataset dispatch by config['dataset'] (port of
 mm_distillnet_tpu/data/factory.py; reference train.py:143-146 and
-evaluate.py:133-146).
-
-'Synthetic' / 'SyntheticMultimodal' give the port's synthetic dataset. The
-real datasets (MultimodalDetection, FLIRDataset, ArgoverseDataset,
-CityScapesDataset) decode and resize with cv2 in the JAX package; their
-port waits for a decode path of its own and raises here.
-"""
+evaluate.py:133-146 dispatch MultimodalDetection / FLIR / Argoverse /
+CityScapes; CarsAugmented is import-dead in the reference and excluded).
+'Synthetic' / 'SyntheticMultimodal' give the synthetic dataset used when
+the Freiburg dataset is not on disk."""
 from __future__ import annotations
 
+from .multimodal import MultimodalDetection
 from .synthetic import SyntheticMultimodal
-
-REAL_DATASETS = ('MultimodalDetection', 'FLIRDataset', 'ArgoverseDataset',
-                 'CityScapesDataset')
 
 
 def get_dataset(config, mode: str):
     name = config.get('dataset', 'MultimodalDetection')
+    if name == 'MultimodalDetection':
+        return MultimodalDetection(config, mode)
     if name in ('Synthetic', 'SyntheticMultimodal'):
         return SyntheticMultimodal(config, mode)
-    if name in REAL_DATASETS:
-        raise NotImplementedError(
-            f'dataset {name} is not ported yet (its decode and resize are '
-            'cv2; ROADMAP Queue 1 item 11); use dataset=Synthetic')
+    if name == 'FLIRDataset':
+        from .flir import FLIRDataset
+        return FLIRDataset(config, mode)
+    if name == 'ArgoverseDataset':
+        from .argoverse import ArgoverseDataset
+        return ArgoverseDataset(config, mode)
+    if name == 'CityScapesDataset':
+        from .cityscapes import CityScapesDataset
+        return CityScapesDataset(config, mode)
     raise ValueError(f'Unsupported dataset {name}')

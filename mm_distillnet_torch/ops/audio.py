@@ -22,6 +22,9 @@ about 1e-3 relative, so nothing here changes torch's matmul precision.
 from __future__ import annotations
 
 import functools
+import shutil
+import subprocess
+import wave
 from typing import Optional, Tuple
 
 import numpy as np
@@ -164,3 +167,37 @@ def log_mel_batch(pcm: torch.Tensor, sr: int = SR, n_fft: int = N_FFT,
     db = power_to_db(melspectrogram(pcm.reshape(b * m, t), sr, n_fft, hop,
                                     n_mels))
     return db.reshape(b, m, n_mels, -1).permute(0, 2, 3, 1)
+
+
+def decode_audio(path: str, sr: int = SR) -> np.ndarray:
+    """Decode mp3 / wav to mono float32 PCM at `sr` (librosa.load's
+    semantics: mono mix-down, floats in [-1, 1])."""
+    if path.endswith('.wav'):
+        with wave.open(path, 'rb') as w:
+            n = w.getnframes()
+            raw = w.readframes(n)
+            width = w.getsampwidth()
+            channels = w.getnchannels()
+            rate = w.getframerate()
+        dtype = {1: np.uint8, 2: np.int16, 4: np.int32}[width]
+        pcm = np.frombuffer(raw, dtype=dtype).astype(np.float32)
+        if width == 1:
+            pcm = (pcm - 128.0) / 128.0
+        else:
+            pcm = pcm / float(np.iinfo(dtype).max)
+        if channels > 1:
+            pcm = pcm.reshape(-1, channels).mean(axis=1)
+        if rate != sr:
+            x = np.arange(len(pcm)) / rate
+            xi = np.arange(int(len(pcm) * sr / rate)) / sr
+            pcm = np.interp(xi, x, pcm).astype(np.float32)
+        return pcm
+    if shutil.which('ffmpeg') is None:
+        raise RuntimeError(
+            f'cannot decode {path}: ffmpeg not available (wav is supported '
+            'natively)')
+    out = subprocess.run(
+        ['ffmpeg', '-v', 'quiet', '-i', path, '-f', 'f32le', '-ac', '1',
+         '-ar', str(sr), 'pipe:1'],
+        check=True, stdout=subprocess.PIPE)
+    return np.frombuffer(out.stdout, dtype=np.float32)

@@ -41,6 +41,10 @@ SETTINGS = dict(
     device_audio_resize=True)
 COLUMNS = ['exp_name', 'modality', 'AP@Ave', 'AP@0.5', 'AP@0.75', 'CDx',
            'CDy']
+# |port - JAX| bound on every AP and CD value of evaluate() and of the
+# evaluate CLIs: measured 0.0 over five weight seeds
+# (scripts/torch_eval_parity_seeds.py)
+PARITY_ATOL = 1e-9
 
 
 @pytest.fixture(scope='module')
@@ -173,9 +177,10 @@ def test_evaluate_matches_reference(setup):
     """evaluate() end to end in both packages: three teachers fused into
     the 'ALL' testing point, six synthetic frames with the compact audio
     ingest. The detections agree to within 1 px (see _same_rows), so a
-    match can cross an IoU threshold of the sweep: AP values within 2
-    points of 100, CD values within 0.5 (measured here: equal to the last
-    digit, AP@0.5 17.6)."""
+    match could cross an IoU threshold of the sweep; measured over five
+    weight seeds (scripts/torch_eval_parity_seeds.py) every AP and CD
+    value was equal to the last digit, so the bound is PARITY_ATOL, just
+    above 0 (AP@0.5 17.6 at this seed)."""
     nets = setup['nets']
     teachers = ('rgb', 'thermal', 'depth')
     want = jax_eval.evaluate(
@@ -191,8 +196,7 @@ def test_evaluate_matches_reference(setup):
     for col in COLUMNS[2:]:
         g, w = got[0][col], float(want[col][0])
         assert np.isfinite(g)
-        tol = 0.5 if col.startswith('CD') else 2.0
-        assert abs(g - w) <= tol, (col, g, w)
+        assert abs(g - w) <= PARITY_ATOL, (col, g, w)
     results = _read_csv('eval-torch/results.0.csv')
     assert list(results[0]) == COLUMNS
     assert float(results[0]['AP@0.5']) == got[0]['AP@0.5']

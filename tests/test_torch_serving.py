@@ -90,7 +90,8 @@ def test_default_device_raises_without_cuda():
 
 def test_port_imports_nothing_of_jax():
     """Importing every module of the port (and chip_smoke) in a fresh
-    interpreter leaves jax, flax and mm_distillnet_tpu out of sys.modules."""
+    interpreter leaves jax, flax, mm_distillnet_tpu, cv2 and PIL out of
+    sys.modules: the machine with the card has neither cv2 nor PIL."""
     code = (
         'import importlib, pkgutil, sys\n'
         'import mm_distillnet_torch as p\n'
@@ -99,7 +100,7 @@ def test_port_imports_nothing_of_jax():
         'for n in names: importlib.import_module(n)\n'
         'import chip_smoke\n'
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
-        '("jax", "jaxlib", "flax", "mm_distillnet_tpu"))\n'
+        '("jax", "jaxlib", "flax", "mm_distillnet_tpu", "cv2", "PIL"))\n'
         'print(len(names), bad)\n'
         'sys.exit(1 if bad or len(names) < 12 else 0)\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
