@@ -6,7 +6,10 @@
 
 `--checkpoint` is a reference .pth / .pth.tar or the port's own
 `checkpoint.{rank}` / `best.{rank}`. The AP table is printed and written
-to `{exp_name}/results.{rank}.csv`. `--just_plot` draws with cv2 in the JAX
+to `{exp_name}/results.{rank}.csv`. Started by torchrun (or with the JAX
+package's or the config's world keys), every rank evaluates the whole
+split on its own card and writes its own files, as the JAX package's
+evaluate() does per process. `--just_plot` draws with cv2 in the JAX
 package and raises here until utils/plotting.py is ported.
 """
 from __future__ import annotations
@@ -19,9 +22,8 @@ from ..data.factory import get_dataset
 from ..device import resolve_device
 from ..evaluation import evaluate
 from ..models.registry import load_model, maybe_load_checkpoint
-from ..utils.logging_utils import setup_run_logging
 from ..utils.reproducibility import make_reproducible_run
-from .train import load_teachers
+from .train import join_world, load_teachers
 
 
 def format_table(rows) -> str:
@@ -46,20 +48,22 @@ def main(argv=None):
     parser.add_argument('--checkpoint', default=None,
                         help='student checkpoint (.pth or the port\'s own)')
     parser.add_argument('--overwrite', default=None)
-    parser.add_argument('--rank', type=int, default=0)
+    parser.add_argument('--rank', type=int, default=None,
+                        help="this process's rank (default: the process "
+                        "group's, 0 without one)")
     parser.add_argument('--just_plot', default=None,
                         help='plot predictions for one frame id and exit')
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
-    dev = resolve_device(args.device)
-    config = load_config(args.config_file, args.overwrite,
-                         extra={'rank': args.rank})
-    setup_run_logging(config, args.rank)
+    resolve_device(args.device)
+    config = load_config(args.config_file, args.overwrite, extra=None
+                         if args.rank is None else {'rank': args.rank})
+    dev = join_world(config, args.device)
     if args.just_plot:
         raise NotImplementedError(
             '--just_plot draws with cv2 (utils/plotting.py); it is not '
-            'ported yet (ROADMAP Queue 1 item 14)')
+            'ported yet (ROADMAP Queue 1 item 3)')
     make_reproducible_run(config.getint('seed', fallback=-1))
 
     teacher_models = load_teachers(config)

@@ -7,8 +7,17 @@ train.py; reference train.py:223-316):
 
 `--device` (default cuda) is the counterpart of the JAX CLIs'
 MMDT_PLATFORM switch; without a card the run raises unless given
-`--device cpu`. A multi-process world raises until the DDP port
-(parallel/mesh.py).
+`--device cpu`. One process per card, as torchrun starts them:
+
+    torchrun --nproc_per_node N -m mm_distillnet_torch.cli.train \\
+        --config_file configs/mm-distillnet.cfg
+
+The world comes from torchrun's environment (or the JAX package's, or the
+config keys coordinator_address / num_processes / process_id;
+parallel/mesh.py); each rank trains on its card (`--local_rank`, else
+LOCAL_RANK) and writes its own checkpoint.{rank} and results.{rank}.csv.
+`--rank`, when given, must be the process group's rank. `--nodes` is read
+and ignored, as by the JAX package's CLI (the world size says it).
 """
 from __future__ import annotations
 
@@ -21,7 +30,7 @@ from ..data.factory import get_dataset
 from ..device import resolve_device
 from ..evaluation import evaluate
 from ..models.registry import load_model, maybe_load_checkpoint
-from ..parallel.mesh import distributed_init_if_needed
+from ..parallel import mesh
 from ..train.checkpoint import load_student_params
 from ..train.trainer import train
 from ..utils.logging_utils import setup_run_logging
@@ -78,12 +87,22 @@ def pretrain(teacher_models, student_model, config, train_set, val_set,
     return module, state.model.state_dict()
 
 
+def join_world(config, device):
+    """Forms the process group the config or the environment describes,
+    then fixes the config's rank (the group's when not given) and the
+    rank's device. Returns the device."""
+    mesh.distributed_init_if_needed(config, device=device)
+    config['rank'] = str(mesh.config_rank(config))
+    dev = resolve_device(device)
+    setup_run_logging(config, int(config['rank']))
+    return dev
+
+
 def train_multimodal_detection(config, device='cuda'):
     """Load the teachers and the student, pretrain, distil, then evaluate
     the best checkpoint (or the trained weights without one). Returns the
     AP table."""
-    dev = resolve_device(device)
-    distributed_init_if_needed(config)
+    dev = join_world(config, device)
     make_reproducible_run(config.getint('seed', fallback=-1))
 
     teacher_models = load_teachers(config)
@@ -98,8 +117,7 @@ def train_multimodal_detection(config, device='cuda'):
 
     # the trained weights go to the final evaluation, unless a best
     # checkpoint was saved (reference train.py:199-213)
-    rank = config.getint('rank', fallback=0) or 0
-    best = load_student_params(config, rank, 'best')
+    best = load_student_params(config, config.getint('rank'), 'best')
     student_model = (student_model[0],
                      best if best is not None else state.model.state_dict())
     return evaluate(teacher_models, student_model, val_set, config,
@@ -112,18 +130,21 @@ def main(argv=None):
     parser.add_argument('--config_file', required=True)
     parser.add_argument('--overwrite', default=None,
                         help='JSON dict of config overrides')
-    parser.add_argument('--rank', type=int, default=0)
-    parser.add_argument('--local_rank', type=int, default=0)
+    parser.add_argument('--rank', type=int, default=None,
+                        help="this process's rank (default: the process "
+                        "group's, 0 without one)")
+    parser.add_argument('--local_rank', type=int, default=None,
+                        help="this process's card (default: LOCAL_RANK)")
     parser.add_argument('--nodes', type=int, default=1)
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
     resolve_device(args.device)
-    config = load_config(args.config_file, args.overwrite,
-                         extra={'rank': args.rank,
-                                'local_rank': args.local_rank,
-                                'nodes': args.nodes})
-    setup_run_logging(config, args.rank)
+    extra = {'nodes': args.nodes}
+    for key in ('rank', 'local_rank'):
+        if getattr(args, key) is not None:
+            extra[key] = getattr(args, key)
+    config = load_config(args.config_file, args.overwrite, extra=extra)
     return train_multimodal_detection(config, args.device)
 
 

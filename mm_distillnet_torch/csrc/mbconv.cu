@@ -387,13 +387,9 @@ cudaError_t se_launch_config(SeLaunch& l, int B, int cep, int cs, int ranks,
       (size_t)se_layout(cep, cs, ranks, split_tiles, per_rank, threads).total *
       sizeof(float);
   if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
-  static size_t allowed = 48 * 1024;  // the dynamic shared memory limit set
-  if (smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        se_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    allowed = smem;
-  }
+  static int allowed[MAX_DEVICES] = {};  // the limit set, per device
+  cudaError_t err = allow_dynamic_smem(se_kernel, allowed, (int)smem);
+  if (err != cudaSuccess) return err;
   l.cfg = cudaLaunchConfig_t{};
   l.cfg.gridDim = dim3(B * ranks);
   l.cfg.blockDim = dim3(threads);

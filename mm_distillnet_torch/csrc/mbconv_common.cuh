@@ -2,7 +2,7 @@
 // named barriers, bulk and 16-byte asynchronous copies, cluster barriers and
 // distributed shared memory, programmatic dependent launch, ldmatrix, and
 // wgmma with its shared-memory descriptors. Thin wrappers of PTX; no policy
-// here.
+// here. One host helper: the per-device dynamic shared memory limit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,6 +12,26 @@
 namespace mbconv {
 
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory one block may use
+constexpr int MAX_DEVICES = 64;   // cards one process may launch on
+
+// Raises `kern`'s dynamic shared memory limit on the current device to
+// `smem` where `allowed` (the launcher's record, one entry per device) says
+// it is lower: cudaFuncSetAttribute holds for the current device only.
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kern, int (&allowed)[MAX_DEVICES],
+                                      int smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem > allowed[dev]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    allowed[dev] = smem;
+  }
+  return cudaSuccess;
+}
 
 __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;

@@ -493,13 +493,10 @@ cudaError_t launch_expand(const Shape& s, cudaStream_t stream,
   const int smem = G::smem_bytes(s.kpad);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   auto kern = expand_dw_kernel<K, S, TH, TW>;
-  static int allowed = 0;  // this instantiation's dynamic shared memory limit
-  if (smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    allowed = smem;
-  }
+  // this instantiation's dynamic shared memory limit, per device
+  static int allowed[MAX_DEVICES] = {};
+  const cudaError_t err = allow_dynamic_smem(kern, allowed, smem);
+  if (err != cudaSuccess) return err;
   const int tiles_x = (s.wo + TW - 1) / TW;
   const int tiles_y = (s.ho + TH - 1) / TH;
   const int nchunk = s.cep / NC;
@@ -521,13 +518,10 @@ cudaError_t launch_dw_only(const Shape& s, cudaStream_t stream,
                    TH * TW * s.cep * 2 + TH * (TW / 8) * s.cep * 4;
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   auto kern = dw_only_kernel<K, S>;
-  static int allowed = 0;  // this instantiation's dynamic shared memory limit
-  if (smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    allowed = smem;
-  }
+  // this instantiation's dynamic shared memory limit, per device
+  static int allowed[MAX_DEVICES] = {};
+  const cudaError_t err = allow_dynamic_smem(kern, allowed, smem);
+  if (err != cudaSuccess) return err;
   const int tiles_x = (s.wo + TW - 1) / TW;
   const int tiles_y = (s.ho + TH - 1) / TH;
   const dim3 grid(tiles_x * tiles_y, 1, s.B);

@@ -450,13 +450,10 @@ cudaError_t launch_project(cudaStream_t stream, const __nv_bfloat16* d,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   auto kern = project_kernel<NT, NWG, KS>;
-  static int allowed = 0;  // this instantiation's dynamic shared memory limit
-  if (smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    allowed = smem;
-  }
+  // this instantiation's dynamic shared memory limit, per device
+  static int allowed[MAX_DEVICES] = {};
+  const cudaError_t err = allow_dynamic_smem(kern, allowed, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid(row_ctas, (co + cols_per_cta - 1) / cols_per_cta);
   kern<<<grid, 128 * NWG + 128, smem, stream>>>(d_map, gate, w_pack, b_prj, skip,
                                                out, M, hw, cep, co,

@@ -7,7 +7,10 @@ src/optimization/traditional.py:57-80, src/datasets/utils.py:90-120): a
 thread-pool loader that:
 - shards the index space across processes (DistributedSampler
   semantics: rank r takes indices r::world_size after an epoch-seeded
-  shuffle, drop_last);
+  shuffle, drop_last); every rank gets len // world_size indices, so that
+  the ranks take the same number of steps (the JAX loader gives the first
+  len % world_size ranks one more, and a rank with a batch more than the
+  others would wait forever in its step's collectives);
 - collates samples into dense NHWC numpy batches with labels padded to
   (B, max_gt, 5) using -1 label markers (the focal loss contract);
 - prefetches a configurable number of batches ahead so host IO overlaps
@@ -71,15 +74,20 @@ class DataLoader:
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self.epoch)
             rng.shuffle(idx)
-        idx = idx[self.process_index::self.process_count]
+        idx = idx[self.process_index::self.process_count][:self._share()]
         if self.drop_last:
             usable = (len(idx) // self.batch_size) * self.batch_size
             idx = idx[:usable]
         return idx
 
+    def _share(self) -> int:
+        """Indices per rank: all of them for one process, else an equal
+        share."""
+        n = len(self.dataset)
+        return n if self.process_count == 1 else n // self.process_count
+
     def __len__(self) -> int:
-        idx_len = len(range(self.process_index, len(self.dataset),
-                            self.process_count))
+        idx_len = self._share()
         if self.drop_last:
             return idx_len // self.batch_size
         return (idx_len + self.batch_size - 1) // self.batch_size

@@ -32,8 +32,19 @@ Parameters stay in fp32; the student computes in `compute_dtype` (bf16 by
 default, through torch.autocast), the split of flax's fp32 params and bf16
 activations. The losses run in fp32 outside the autocast region. Random
 draws (stochastic depth) come from a generator seeded by the step's seed
-and step number. `bn_mode='per_replica'` (DataParallel statistics) waits
-for the DDP port and raises.
+and step number, and in a process group its rank.
+
+In a process group (parallel/mesh.py; one process per card, each stepping
+on its own `batch_size` frames, the global batch their concatenation) the
+gradients and metrics are averaged over the ranks before the update, so
+that every rank applies the same update. `bn_mode='sync'` (the JAX
+package's default, a global batch under SPMD) makes the student's
+BatchNorm2d modules SyncBatchNorm2d and takes the batch-level decisions
+over the global batch: the focal loss's "no annotation anywhere" switch,
+and the audio mix of global elements 0 and 1 (on rank 0).
+`bn_mode='per_replica'` (`make_train_step_per_replica_bn`, the
+reference's DataParallel semantics) keeps each rank's BN statistics and
+loss its own and broadcasts rank 0's running statistics after the update.
 """
 from __future__ import annotations
 
@@ -50,8 +61,10 @@ from ..losses.focal import focal_loss
 from ..losses.mta import mta_loss
 from ..models.efficientdet_generator import EfficientDetGenerator
 from ..models.fused_forward import make_eval_forward
+from ..models.layers import use_sync_batch_norm
 from ..ops.postprocess import detections_to_labels
 from ..ops.resize import maybe_stretch_mel_axis
+from ..parallel import mesh
 from ..train.optim import apply_gradients, build_optimizer
 from .pseudo_labels import (PseudoLabelConfig, fuse_teacher_labels,
                             teacher_detections)
@@ -206,15 +219,20 @@ def _augment_label_union(per_teacher_labels: List[torch.Tensor]
 def teacher_targets(teachers: Mapping[str, Teacher],
                     batch: Mapping[str, torch.Tensor], cfg: DistillConfig,
                     anchors: torch.Tensor, class_valid: torch.Tensor,
-                    pred_to_label: torch.Tensor) -> TeacherTargets:
+                    pred_to_label: torch.Tensor,
+                    mix: bool = True) -> TeacherTargets:
     """The teacher half of the step, without grad: the compact audio's
     mel stretch, the audio mix, the teachers' forwards and the focal
     loss's annotations (ground truth, per-teacher labels or the fused
-    pseudo-labels, by method)."""
+    pseudo-labels, by method). `mix=False` leaves the audio mix out: a
+    rank whose frames are not elements 0 and 1 of the global batch."""
     key = cfg.student_input
     x = maybe_stretch_mel_axis(batch[key], cfg.pl.image_size)
-    augment = cfg.audio_augmentation_merge and \
+    augment = mix and cfg.audio_augmentation_merge and \
         'augmented' in cfg.train_method
+    if augment and x.shape[0] < 2:
+        raise ValueError('the audio mix merges batch elements 0 and 1; '
+                         f'this batch holds {x.shape[0]}')
     if augment:
         x = merge_audio_batch01(x)
     t_outs = _teacher_forward(teachers, {**batch, key: x})
@@ -253,11 +271,12 @@ def _autocast(device: torch.device, dtype: torch.dtype):
 def student_losses(student_model: nn.Module, targets: TeacherTargets,
                    cfg: DistillConfig, anchors: torch.Tensor, train: bool,
                    generator: Optional[torch.Generator] = None,
-                   compute_dtype: torch.dtype = torch.float32
+                   compute_dtype: torch.dtype = torch.float32,
+                   reduce_any=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The student's forward (train or eval mode, in `compute_dtype`) and
     its losses (fp32). Returns (loss, metrics) with the reference's logged
-    quantities."""
+    quantities. `reduce_any` goes to the focal loss (a global batch)."""
     student_model.train(train)
     x = targets.student_input
     with _autocast(x.device, compute_dtype):
@@ -266,7 +285,8 @@ def student_losses(student_model: nn.Module, targets: TeacherTargets,
 
     reg_losses, cls_losses = [], []
     for ann in targets.annotations:
-        r, c = focal_loss(out.classification, out.regression, ann, anchors)
+        r, c = focal_loss(out.classification, out.regression, ann, anchors,
+                          reduce_any=reduce_any)
         reg_losses.append(r)
         cls_losses.append(c)
 
@@ -308,19 +328,26 @@ def compute_distill_losses(student_model: nn.Module,
                            cfg: DistillConfig, anchors, class_valid,
                            pred_to_label, train: bool,
                            generator: Optional[torch.Generator] = None,
-                           compute_dtype: torch.dtype = torch.float32):
+                           compute_dtype: torch.dtype = torch.float32,
+                           global_batch: bool = False):
     """Shared loss computation of the train and validation steps: (loss,
     metrics). In train mode the student's BN statistics are updated in
-    place."""
-    targets = teacher_targets(teachers, batch, cfg, anchors, class_valid,
-                              pred_to_label)
+    place. `global_batch`: this process's frames are its rank's part of
+    one batch (the audio mix on rank 0 only, the focal loss's switch over
+    every rank)."""
+    targets = teacher_targets(
+        teachers, batch, cfg, anchors, class_valid, pred_to_label,
+        mix=not global_batch or mesh.process_index() == 0)
     return student_losses(student_model, targets, cfg, anchors, train,
-                          generator, compute_dtype)
+                          generator, compute_dtype,
+                          mesh.global_any if global_batch else None)
 
 
-def _step_seed(seed: int, step: int) -> int:
-    """The seed of step `step`'s generator: reproducible per step."""
-    return (seed % (1 << 31)) * (1 << 32) + step
+def _step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The seed of step `step`'s generator on rank `rank`: reproducible
+    per step, its own per rank."""
+    return ((seed % (1 << 31)) * (1 << 32) + step
+            + rank * 0x9E3779B97F4A7C15) % (1 << 64)
 
 
 def _on(dev, anchors, class_valid, pred_to_label):
@@ -329,36 +356,66 @@ def _on(dev, anchors, class_valid, pred_to_label):
             torch.as_tensor(pred_to_label, device=dev))
 
 
+def _mean_over_ranks(metrics: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    mesh.all_reduce_mean_(list(metrics.values()))
+    return metrics
+
+
 def make_train_step(teachers: Mapping[str, Teacher], cfg: DistillConfig,
                     anchors, class_valid, pred_to_label, *,
                     compute_dtype: torch.dtype = torch.bfloat16,
                     seed: int = 0, bn_mode: str = 'sync', device='cuda'):
     """fn(state, batch) -> metrics: one step on the batch (a dict of
     tensors on `device`), updating state.model, state.optimizer and
-    state.step in place. The metrics are 0-dim tensors on the device."""
-    if bn_mode == 'per_replica':
-        raise NotImplementedError(
-            "bn_mode='per_replica' keeps DataParallel's per-replica BN "
-            'statistics; it waits for the DDP port (ROADMAP Queue 1 item 13)')
+    state.step in place. The metrics are 0-dim tensors on the device.
+
+    In a process group the batch is this rank's part of the global batch;
+    `bn_mode` ('sync' or 'per_replica') says how the ranks' BN statistics
+    and losses combine (module docstring). Without one both modes are the
+    plain step."""
+    if bn_mode not in ('sync', 'per_replica'):
+        raise ValueError(f"bn_mode is 'sync' or 'per_replica', not "
+                         f'{bn_mode!r}')
     dev = resolve_device(device)
     anchors, class_valid, pred_to_label = _on(dev, anchors, class_valid,
                                               pred_to_label)
     generator = torch.Generator(device=dev)
+    world = mesh.is_initialized()
+    sync = world and bn_mode == 'sync'
+    reduce = mesh.all_reduce_mean_ if world else None
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        generator.manual_seed(_step_seed(seed, state.step))
+        generator.manual_seed(_step_seed(seed, state.step,
+                                         mesh.process_index()))
+        if sync:
+            use_sync_batch_norm(state.model)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = compute_distill_losses(
             state.model, teachers, batch, cfg, anchors, class_valid,
             pred_to_label, train=True, generator=generator,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, global_batch=sync)
         loss.backward()
-        apply_gradients(state.optimizer)
+        apply_gradients(state.optimizer, reduce)
+        if world and not sync:
+            # rank 0's running statistics persist (DataParallel's replica 0)
+            mesh.broadcast_(list(state.model.buffers()))
         state.step += 1
-        return metrics
+        return _mean_over_ranks(metrics)
 
     return train_step
+
+
+def make_train_step_per_replica_bn(teachers: Mapping[str, Teacher],
+                                   cfg: DistillConfig, anchors, class_valid,
+                                   pred_to_label, **kwargs):
+    """The train step with the reference's DataParallel BatchNorm: each
+    rank's statistics and losses from its own frames, gradients and
+    metrics averaged, rank 0's running statistics kept (JAX
+    make_train_step_per_replica_bn)."""
+    return make_train_step(teachers, cfg, anchors, class_valid,
+                           pred_to_label, bn_mode='per_replica', **kwargs)
 
 
 def make_eval_loss_step(teachers: Mapping[str, Teacher], cfg: DistillConfig,
@@ -367,10 +424,13 @@ def make_eval_loss_step(teachers: Mapping[str, Teacher], cfg: DistillConfig,
                         device='cuda'):
     """fn(state, batch) -> metrics: the validation loss (reference
     validate(), train_methods.py:1083-1185), the same computation without
-    grad and with the student in eval mode. The state is not changed."""
+    grad and with the student in eval mode. The state is not changed. In
+    a process group the batch is this rank's part of the global batch and
+    the metrics are the global batch's (averaged over the ranks)."""
     dev = resolve_device(device)
     anchors, class_valid, pred_to_label = _on(dev, anchors, class_valid,
                                               pred_to_label)
+    world = mesh.is_initialized()
 
     def eval_step(state: TrainState, batch: Mapping[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
@@ -378,9 +438,10 @@ def make_eval_loss_step(teachers: Mapping[str, Teacher], cfg: DistillConfig,
         with torch.no_grad():
             _, metrics = compute_distill_losses(
                 state.model, teachers, batch, cfg, anchors, class_valid,
-                pred_to_label, train=False, compute_dtype=compute_dtype)
+                pred_to_label, train=False, compute_dtype=compute_dtype,
+                global_batch=world)
         state.model.train(was_training)
-        return metrics
+        return _mean_over_ranks(metrics)
 
     return eval_step
 

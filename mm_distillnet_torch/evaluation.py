@@ -22,9 +22,14 @@ Weights are state_dicts (convert/weights.py carries them over from the
 reference's variable trees). With config `fused_inference=True` the
 student's and every teacher's backbone run the hand-written MBConv kernels
 through models/fused_forward.py (a generator teacher's, each of its
-per-modality backbones). Not ported, and raising NotImplementedError:
-`quant_inference`, `approx_topk` and `eval_devices > 1`
-(parallel/mesh.py).
+per-modality backbones). With a `mesh` (parallel.mesh.create_mesh: a tuple
+of devices) the predictor and the teacher function keep one replica per
+device (folded weights and kernels included), pad the batch to the mesh
+(`pad_batch_to_devices`), run each part on its device and gather the real
+rows on the first; `evaluate` builds one from config `eval_devices`,
+capped at the process's own devices (the JAX package's SPMD eval over
+the local devices). Not ported, and raising NotImplementedError:
+`quant_inference` and `approx_topk`.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from .models.fused_forward import make_fused_predictor
 from .ops.anchors import anchor_table
 from .ops.postprocess import detections_to_labels, postprocess_detections
 from .ops.resize import maybe_stretch_mel_axis
+from .parallel import mesh as meshes
 from .train.trainer import distill_config_from, label_tables
 from .utils.metrics import (ap_per_class, get_batch_central_distances,
                             get_batch_statistics, labels_to_lists)
@@ -67,10 +73,7 @@ def count_params(variables) -> int:
                    if not k.endswith(_BUFFER_SUFFIXES)))
 
 
-def _refuse_unported(config, mesh=None, quant_pack=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            'sharding a batch over devices waits for parallel/mesh.py')
+def _refuse_unported(config, quant_pack=None) -> None:
     if quant_pack is not None or \
             config.getboolean('quant_inference', fallback=False):
         raise NotImplementedError(
@@ -116,8 +119,16 @@ def make_predict_fn(model, image_size: int, config, variables=None,
     `variables` given here) the backbone runs through the fused MBConv path
     (models.fused_forward) with the weights folded once; the `variables`
     of a call are then not looked at. A compact-audio input (80 mel rows)
-    is stretched on the device first."""
-    _refuse_unported(config, mesh, quant_pack)
+    is stretched on the device first.
+
+    With `mesh` (a tuple of devices; `device` is then not read) the batch
+    is split over one replica per device and the rows and features come
+    back on mesh[0]."""
+    _refuse_unported(config, quant_pack)
+    if mesh is not None:
+        return meshes.over_mesh(mesh, [
+            make_predict_fn(model, image_size, config, variables,
+                            device=d) for d in mesh], batch_arg=1)
     dev = resolve_device(device)
     anchors = torch.as_tensor(anchor_table(image_size), device=dev)
     conf = config.getfloat('conf_threshold', fallback=0.3)
@@ -155,8 +166,15 @@ def make_fused_teacher_fn(teacher_models: Dict[str, Any], image_size: int,
     state_dict}. With config `fused_inference=True` give `teacher_variables`
     here: each teacher's weights are folded once and its forward runs the
     MBConv kernels. A generator teacher reads a dict of its modalities,
-    the compact audio stretched first."""
-    _refuse_unported(config, mesh)
+    the compact audio stretched first. With `mesh` (a tuple of devices;
+    `device` is then not read) the batch is split over one replica per
+    device and the rows come back on mesh[0]."""
+    _refuse_unported(config)
+    if mesh is not None:
+        return meshes.over_mesh(mesh, [
+            make_fused_teacher_fn(teacher_models, image_size, config,
+                                  teacher_variables=teacher_variables,
+                                  device=d) for d in mesh], batch_arg=1)
     dev = resolve_device(device)
     if teacher_variables is None and \
             config.getboolean('fused_inference', fallback=False):
@@ -235,21 +253,24 @@ def evaluate(teacher_models: Dict[str, Tuple[Any, Any]],
     and writes the results and resources CSV files."""
     logger.warning('Beginning evaluation of student model performance')
     dev = resolve_device(device)
-    rank = config.getint('rank', fallback=0) or 0
+    rank = meshes.config_rank(config)
     image_size = config.getint('image_size')
     s_module, s_vars = student_model
     num_classes = s_module.num_classes
 
     class_valid, pred_to_label = label_tables(test_set, num_classes, dev)
 
-    if (config.getint('eval_devices', fallback=-1) or -1) > 1:
-        raise NotImplementedError(
-            'eval_devices > 1 shards the batch over a mesh; it waits for '
-            'parallel/mesh.py')
+    # the batch over `eval_devices` of this process's devices (all when
+    # unset), the first being `dev`; one device runs without a mesh
+    available = [dev] + [d for d in meshes.local_devices(dev.type)
+                         if d != dev]
+    n_eval = config.getint('eval_devices', fallback=-1) or -1
+    n_eval = len(available) if n_eval <= 0 else min(n_eval, len(available))
+    mesh = meshes.create_mesh(n_eval, available) if n_eval > 1 else None
 
     student_key = student_input_key(config)
     predict = make_predict_fn(s_module, image_size, config, variables=s_vars,
-                              device=dev)
+                              mesh=mesh, device=dev)
     testing_points = list(teacher_models.keys())
     if (config.getboolean('use_thermal', fallback=False)
             and config.getboolean('use_depth', fallback=False)
@@ -280,7 +301,7 @@ def evaluate(teacher_models: Dict[str, Tuple[Any, Any]],
         t_vars = {m: teacher_models[m][1] for m in members}
         fused_fn = make_fused_teacher_fn(
             {m: teacher_models[m][0] for m in members}, image_size, config,
-            teacher_variables=t_vars, device=dev)
+            mesh=mesh, teacher_variables=t_vars, device=dev)
 
         all_predictions, all_labels = [], []
         target_classes: List[float] = []

@@ -25,7 +25,7 @@ band. The chain runs in fp32 whatever the model's dtype.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -124,19 +124,25 @@ def _per_image_loss(cls_in: torch.Tensor, regression: torch.Tensor,
 
 def focal_loss(classification: torch.Tensor, regression: torch.Tensor,
                annotations: torch.Tensor, anchors: torch.Tensor,
-               logits: Optional[torch.Tensor] = None
+               logits: Optional[torch.Tensor] = None,
+               reduce_any: Optional[Callable[[torch.Tensor],
+                                             torch.Tensor]] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """classification (B, N, C) sigmoid scores, regression (B, N, 4),
     annotations (B, MAX_GT, 5) padded with -1 labels, anchors (N, 4). With
     `logits` (the pre-sigmoid scores) the classification term comes from
     them and `classification` is not read. Returns (regression_loss,
     classification_loss), batch means, exactly 0 when no image has an
-    annotation."""
+    annotation. A batch split over processes passes `reduce_any`
+    (parallel.mesh.global_any): "no image has an annotation" is then
+    decided over the whole batch, as for one batch on one device."""
     from_logits = logits is not None
     cls_in = (logits if from_logits else classification).float()
     reg, cls, has_gt = _per_image_loss(
         cls_in, regression.float(), annotations.float(), anchors.float(),
         from_logits)
     any_gt = has_gt.any()
+    if reduce_any is not None:
+        any_gt = reduce_any(any_gt)
     return (torch.where(any_gt, reg.mean(), 0.0),
             torch.where(any_gt, cls.mean(), 0.0))

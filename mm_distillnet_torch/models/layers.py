@@ -17,6 +17,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -91,6 +92,90 @@ class BatchNorm2d(nn.BatchNorm2d):
         # mode does not read it, and a version bump would refuse the backward
         self.running_var.data.lerp_(old.mul_(1.0 - m), 1.0 / n)
         return y
+
+
+def _all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
+    if dist.is_available() and dist.is_initialized():
+        dist.all_reduce(t)
+    return t
+
+
+def _per_channel(v: torch.Tensor) -> torch.Tensor:
+    return v[None, :, None, None]
+
+
+class _SyncBatchNormFn(torch.autograd.Function):
+    """Train-mode batch norm over the batch of every rank: the forward's
+    statistics and the backward's two reductions are each one fp32
+    `all_reduce` of per-channel sums."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        c = x.shape[1]
+        xf = x.float()
+        stats = _all_reduce_sum_(torch.cat([
+            xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+            xf.new_full((1,), x.numel() // c)]))
+        n = stats[-1]
+        mean = stats[:c] / n
+        # E[x^2] - E[x]^2, floored at 0, as flax's BatchNorm computes it
+        var = (stats[c:2 * c] / n - mean * mean).clamp(min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = ((xf - _per_channel(mean)) * _per_channel(invstd * weight)
+             + _per_channel(bias)).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        c = x.shape[1]
+        dyf = dy.float()
+        xmu = x.float() - _per_channel(mean)
+        local = torch.cat([dyf.sum((0, 2, 3)), (dyf * xmu).sum((0, 2, 3))])
+        total = _all_reduce_sum_(local.clone())
+        dx = (dyf - _per_channel(total[:c] / n)
+              - xmu * _per_channel(invstd * invstd * total[c:] / n)) \
+            * _per_channel(invstd * weight)
+        # the parameters' gradients are this rank's; the train step
+        # averages every gradient over the ranks
+        return dx.to(x.dtype), local[c:] * invstd, local[:c], None
+
+
+class SyncBatchNorm2d(BatchNorm2d):
+    """BatchNorm2d whose train-mode statistics are those of the batches of
+    every rank together (flax's BatchNorm under an SPMD mesh, the JAX
+    package's bn_mode='sync'): biased variance E[x^2] - E[x]^2 in fp32 for
+    the normalisation and the running update, one `all_reduce` of (sum,
+    sum of squares, count) in the forward and one of the two gradient
+    sums in the backward. torch.nn.SyncBatchNorm is not used: it gathers
+    (gloo on CUDA tensors has no all_gather) and keeps the unbiased
+    running variance. Outside a process group the batch is this process's.
+    No state of its own: `use_sync_batch_norm` switches modules in place."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        y, mean, var = _SyncBatchNormFn.apply(x, self.weight, self.bias,
+                                              self.eps)
+        self.num_batches_tracked.add_(1)
+        m = self.momentum
+        if m is None:   # cumulative average, as torch defines it
+            m = 1.0 / float(self.num_batches_tracked)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, m)
+            self.running_var.lerp_(var, m)
+        return y
+
+
+def use_sync_batch_norm(module: nn.Module) -> nn.Module:
+    """Every BatchNorm2d of `module` made a SyncBatchNorm2d, in place;
+    parameters, buffers and state_dict keys stay as they are."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.__class__ = SyncBatchNorm2d
+    return module
 
 
 def batch_norm(channels: int) -> BatchNorm2d:

@@ -34,8 +34,9 @@ The kernels read the weights in layouts made once at fold time
 wgmma reads them from shared memory, cut into the pieces one copy brings in. What
 bounds each kernel and why its design is so is noted in its CUDA source.
 
-Each wrapper runs its kernel for a CUDA tensor and counts the launch in
-`launches`; for a CPU tensor it runs the plain version (`*_reference`),
+Each wrapper runs its kernel for a CUDA tensor, with that tensor's card as
+the current device (the C side sets its shared-memory limits per device),
+and counts the launch in `launches`; for a CPU tensor it runs the plain version (`*_reference`),
 which repeats the kernel's arithmetic and rounding points in torch:
 the expanded activation is rounded to bf16 before the taps, the depthwise
 accumulates in fp32 from the bias, the SE mean is taken over the fp32
@@ -637,22 +638,25 @@ def expand_dw(x: torch.Tensor, f: FoldedMBConv, args: BlockArgs
                        dtype=torch.float32, device=dev)
     pt, _ = same_pad_amounts(h, s, k)
     pl, _ = same_pad_amounts(w, s, k)
-    err = _fn('mbconv_expand_dw')(
-        _ptr(x), _ptr(f.wexp_pack), _ptr(f.dw_pack), _ptr(f.w_dw),
-        _ptr(f.b_dw), _ptr(d), _ptr(sums), b, h, w, cin, kpad, cep, k, s, pt,
-        pl, plan.th, plan.tw, plan.nsplit, _stream(dev))
+    with torch.cuda.device(dev):
+        err = _fn('mbconv_expand_dw')(
+            _ptr(x), _ptr(f.wexp_pack), _ptr(f.dw_pack), _ptr(f.w_dw),
+            _ptr(f.b_dw), _ptr(d), _ptr(sums), b, h, w, cin, kpad, cep, k, s,
+            pt, pl, plan.th, plan.tw, plan.nsplit, _stream(dev))
     _raise_on(err, 'mbconv_expand_dw')
     launches['mbconv_expand_dw'] += 1
     return d, sums
 
 
 @functools.lru_cache(maxsize=None)
-def _check_clusters_fit(b: int, cep: int, cs: int, plan: SePlan) -> None:
-    """Once per launch shape: the card must hold at least one cluster of
-    kernel (b) at this plan, or the launch would fail."""
-    n = _fn('mbconv_se_max_clusters')(b, cep, cs, plan.ranks,
-                                      int(plan.split_tiles), plan.per_rank,
-                                      plan.threads)
+def _check_clusters_fit(device_index: int, b: int, cep: int, cs: int,
+                        plan: SePlan) -> None:
+    """Once per card and launch shape: the card must hold at least one
+    cluster of kernel (b) at this plan, or the launch would fail."""
+    with torch.cuda.device(device_index):
+        n = _fn('mbconv_se_max_clusters')(b, cep, cs, plan.ranks,
+                                          int(plan.split_tiles),
+                                          plan.per_rank, plan.threads)
     if n < 1:
         raise RuntimeError(
             f'the card holds no cluster of the SE kernel at {plan} '
@@ -687,13 +691,14 @@ def se_gate(sums: torch.Tensor, f: FoldedMBConv, hw: int,
                dev, 'se_pack')
         if packed.data_ptr() % 16:
             raise ValueError('se_pack must start on a 16-byte boundary')
-    _check_clusters_fit(b, cep, cs, plan)
+    _check_clusters_fit(dev.index, b, cep, cs, plan)
     gate = torch.empty((b, cep), dtype=torch.float32, device=dev)
-    err = _fn('mbconv_se')(_ptr(sums), _ptr(f.w_se1), _ptr(f.b_se1),
-                            _ptr(f.w_se2), _ptr(f.b_se2), _ptr(packed),
-                            _ptr(gate), b, t, cep, cs, hw, plan.ranks,
-                            int(plan.split_tiles), plan.per_rank,
-                            plan.threads, _stream(dev))
+    with torch.cuda.device(dev):
+        err = _fn('mbconv_se')(_ptr(sums), _ptr(f.w_se1), _ptr(f.b_se1),
+                                _ptr(f.w_se2), _ptr(f.b_se2), _ptr(packed),
+                                _ptr(gate), b, t, cep, cs, hw, plan.ranks,
+                                int(plan.split_tiles), plan.per_rank,
+                                plan.threads, _stream(dev))
     _raise_on(err, 'mbconv_se')
     launches['mbconv_se'] += 1
     return gate
@@ -722,10 +727,12 @@ def project(d: torch.Tensor, gate: torch.Tensor, f: FoldedMBConv,
                          f'pixels per image, got {ho}x{wo}')
     m = b * ho * wo
     plan = project_plan(m, cep, co)
-    err = _fn('mbconv_project')(_ptr(d), _ptr(gate), _ptr(f.wprj_pack),
-                                _ptr(f.b_prj), _ptr(skip), _ptr(out), m,
-                                ho * wo, cep, co, plan.cols, plan.row_ctas,
-                                plan.nwg, plan.stages, _stream(dev))
+    with torch.cuda.device(dev):
+        err = _fn('mbconv_project')(_ptr(d), _ptr(gate), _ptr(f.wprj_pack),
+                                    _ptr(f.b_prj), _ptr(skip), _ptr(out), m,
+                                    ho * wo, cep, co, plan.cols,
+                                    plan.row_ctas, plan.nwg, plan.stages,
+                                    _stream(dev))
     _raise_on(err, 'mbconv_project')
     launches['mbconv_project'] += 1
     return out

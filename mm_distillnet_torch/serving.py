@@ -8,8 +8,12 @@ NMS (ops/postprocess.py). `serve_many` chunks any number of images into
 the predictor's batch, zero-pads the tail and returns the real rows.
 
 A compact-audio batch (80 mel rows instead of `image_size`) is stretched
-on the device first (ops/resize.py); any other height raises. Not ported
-yet: the export/load of a predictor.
+on the device first (ops/resize.py); any other height raises. With a
+`mesh` (parallel.mesh.create_mesh: a tuple of devices) the predictor
+keeps one replica per device, pads the batch to the mesh, runs a part on
+each device and returns the real rows on the first (the JAX package's
+batch-sharded serving over a `data` mesh). Not ported yet: the
+export/load of a predictor.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from .ops.anchors import anchor_table
 from .ops.postprocess import (Detections, class_validity_table,
                               postprocess_detections)
 from .ops.resize import maybe_stretch_mel_axis
+from .parallel.mesh import over_mesh
 
 __all__ = ['make_serving_fn', 'serve_many']
 
@@ -38,14 +43,27 @@ def make_serving_fn(model, state_dict, image_size: int, *,
                     num_classes: int = 20,
                     plan_spec: Optional[str] = None,
                     dtype: torch.dtype = torch.bfloat16,
+                    mesh=None,
                     device='cuda') -> Callable[..., Detections]:
     """Predictor images (B, H, W, C) -> Detections on `device`.
 
     Thresholds are the shipped eval defaults (reference
     configs/mm-distillnet.cfg:117-119); valid_prediction_ids defaults to
-    [6] ('car'). `plan_spec` and `dtype` go to make_fused_predictor."""
+    [6] ('car'). `plan_spec` and `dtype` go to make_fused_predictor. With
+    `mesh` (a tuple of devices; `device` is then not read) any batch is
+    split over one replica per device and the Detections come back on
+    mesh[0]."""
     if approx:
         raise NotImplementedError('approx top-k is TPU-only; not ported')
+    if mesh is not None:
+        replicas = [make_serving_fn(
+            model, state_dict, image_size, conf_threshold=conf_threshold,
+            nms_threshold=nms_threshold, num_candidates=num_candidates,
+            max_detections=max_detections,
+            valid_prediction_ids=valid_prediction_ids,
+            num_classes=num_classes, plan_spec=plan_spec, dtype=dtype,
+            device=d) for d in mesh]
+        return over_mesh(mesh, replicas)
     dev = resolve_device(device)
     forward = make_fused_predictor(model, state_dict, image_size,
                                    plan_spec=plan_spec, dtype=dtype,

@@ -7,7 +7,9 @@ As save_checkpoint / resume_from_checkpoint of the reference
 step count) to `{exp_name}/checkpoint.{rank}`, copied to `best.{rank}` when
 validation improves, with the parameters-only `only_parameters_student_best
 .{rank}` beside it (train_methods.py:1028-1034). Every file is written to a
-temporary name and renamed, so a reader never sees half of one.
+temporary name and renamed, so a reader never sees half of one. In a
+process group `save_checkpoint` returns after every rank has written its
+files (a barrier), so rank 0 may read them all.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..distill.train_step import TrainState
+from ..parallel.mesh import barrier
 
 
 def _ckpt_path(config, name: str, rank: int) -> str:
@@ -48,6 +51,7 @@ def save_checkpoint(config, state: TrainState, epoch: int, best_loss: float,
                 _ckpt_path(config, 'best', rank))
         _atomic(lambda p: torch.save({'state_dict': model_state}, p),
                 _ckpt_path(config, 'only_parameters_student_best', rank))
+    barrier()
     return path
 
 

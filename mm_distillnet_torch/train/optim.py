@@ -16,7 +16,7 @@ src/optimization/train_methods.py:818-878):
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterable, List
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
 
@@ -70,10 +70,16 @@ def clip_by_global_norm_(grads: List[torch.Tensor],
     return norm
 
 
-def apply_gradients(optimizer: torch.optim.Optimizer) -> None:
-    """One update from the parameters' .grad: the clip the param group
-    carries (reference src/optimization/traditional.py:184-189), then the
-    optimizer's step."""
+def apply_gradients(optimizer: torch.optim.Optimizer,
+                    reduce: Optional[Callable[[List[torch.Tensor]], None]]
+                    = None) -> None:
+    """One update from the parameters' .grad: `reduce` (in a process
+    group, parallel.mesh.all_reduce_mean_: the gradients averaged over the
+    ranks, in place), then the clip the param group carries (reference
+    src/optimization/traditional.py:184-189), which so sees the reduced
+    gradient, then the optimizer's step."""
+    if reduce is not None:
+        reduce(_grads(optimizer))
     clip = optimizer.param_groups[0].get('grad_clip')
     if clip:
         clip_by_global_norm_(_grads(optimizer), clip)

@@ -18,6 +18,15 @@ method)` as the reference trainer (src/optimization/train_methods.py:
   after `es_patience` validations without improvement; `fast_run` stops
   after two iterations and one epoch.
 
+In a process group (parallel/mesh.py: one process per card) every rank
+trains the same student: it is broadcast from rank 0 at start, the
+loaders take the rank's share of the frames, the step averages gradients
+and metrics over the ranks (config `bn_mode`: 'sync' or 'per_replica'),
+the validation loss is the global batch's, so that the scheduler, the
+best copy and early stop decide alike on every rank, and each rank writes
+and resumes its own `checkpoint.{rank}`. The config's rank must be the
+group's (`mesh.config_rank`).
+
 The modalities are cast to `transfer_dtype_from(config)` (bf16 under the
 default bf16 compute dtype) before the copy to the device, as in the JAX
 package. With config `profile_dir` the epoch loop runs under
@@ -50,6 +59,7 @@ from ..distill.train_step import (METRICS, DistillConfig, TrainState,
                                   make_teachers, make_train_step)
 from ..ops.anchors import anchor_table
 from ..ops.postprocess import class_validity_table
+from ..parallel import mesh
 from ..utils.logging_utils import ScalarWriter, setup_run_logging
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .optim import build_scheduler, set_learning_rate
@@ -125,7 +135,7 @@ def train(teacher_models: Dict[str, Tuple[Any, Any]],
     (module, state_dict). The student is trained on a copy; the caller's
     module is not changed. Returns the final TrainState."""
     dev = resolve_device(device)
-    rank = config.getint('rank', fallback=0) or 0
+    rank = mesh.config_rank(config)
     setup_run_logging(config, rank)
     writer = ScalarWriter(config, rank)
 
@@ -146,6 +156,7 @@ def train(teacher_models: Dict[str, Tuple[Any, Any]],
         dtype=dtype, device=dev)
 
     state = init_train_state(copy.deepcopy(s_module), config, s_vars, dev)
+    mesh.broadcast_module_(state.model)
     scheduler = build_scheduler(config)
     start_epoch, best_loss, best_epoch = 0, math.inf, 0
     if config.getboolean('resume', fallback=False):
@@ -167,10 +178,14 @@ def train(teacher_models: Dict[str, Tuple[Any, Any]],
     batch_size = config.getint('batch_size')
     num_workers = config.getint('num_workers', fallback=4)
     max_gt = cfg.pl.max_gt
+    shard = dict(process_index=mesh.process_index(),
+                 process_count=mesh.process_count())
     loader = DataLoader(training_set, batch_size, shuffle=True,
-                        num_workers=num_workers, max_gt=max_gt, seed=seed)
+                        num_workers=num_workers, max_gt=max_gt, seed=seed,
+                        **shard)
     val_loader = DataLoader(val_set, batch_size, shuffle=False,
-                            num_workers=num_workers, max_gt=max_gt) \
+                            num_workers=num_workers, max_gt=max_gt,
+                            **shard) \
         if val_set is not None else None
 
     num_epoches = config.getint('num_epoches')

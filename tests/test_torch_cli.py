@@ -16,6 +16,7 @@ import csv
 import importlib.util
 import json
 import os
+import socket
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +34,7 @@ from mm_distillnet_torch.convert.weights import (flatten_variables,
                                                  state_dict_from_flax,
                                                  torch_key_for)
 from mm_distillnet_torch.data import factory
-from mm_distillnet_torch.parallel.mesh import distributed_init_if_needed
+from mm_distillnet_torch.parallel import mesh
 
 from .helpers import fast_init
 from .test_torch_evaluation import PARITY_ATOL
@@ -241,31 +242,60 @@ def test_teachers_load_from_the_files(files):
         assert module.in_channels == CHANNELS[m]
 
 
-@pytest.mark.parametrize('extra,env,match', [
-    (dict(num_processes=2), {}, 'item 13'),
-    (dict(coordinator_address='localhost:1234'), {}, 'item 13'),
-    (dict(), {'WORLD_SIZE': '2'}, 'WORLD_SIZE'),
-    (dict(), {'JAX_NUM_PROCESSES': '4'}, 'JAX_NUM_PROCESSES')])
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize('extra,env,error,match', [
+    (dict(num_processes=2), {}, ValueError, 'without an address'),
+    (dict(coordinator_address='127.0.0.1:{port}', num_processes=2,
+          process_id=1), {'MMDT_DIST_INIT_TIMEOUT': '2'},
+     torch.distributed.DistError, '(?i)timed out'),
+    (dict(), {'WORLD_SIZE': '2'}, ValueError, 'without an address'),
+    (dict(), {'JAX_NUM_PROCESSES': '4'}, ValueError, 'without an address')])
 def test_train_cli_refuses_what_is_not_ported(files, monkeypatch, extra,
-                                              env, match):
+                                              env, error, match):
+    """A configured world that cannot form raises before any work: a
+    world size without an address (config keys, torch's or the JAX
+    package's environment), or a coordinator that does not answer within
+    the timeout. (Worlds that form: tests/test_torch_distributed.py.)"""
+    for k in ('MASTER_ADDR', 'MASTER_PORT', 'WORLD_SIZE', 'RANK',
+              'JAX_COORDINATOR_ADDRESS', 'JAX_NUM_PROCESSES'):
+        monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=match):
+    extra = {k: v.format(port=_free_port()) if isinstance(v, str) else v
+             for k, v in extra.items()}
+    with pytest.raises(error, match=match):
         cli_train.main(['--config_file', CONFIG, '--device', 'cpu',
                         '--overwrite', _overwrite(files, exp_name='refused',
                                                   **extra)])
+    assert not mesh.is_initialized()
+    assert not os.path.exists('refused')
 
 
 def test_nodes_and_single_process_worlds(files, monkeypatch):
+    """Without an address a world of one is a single process; `--nodes`
+    is read and ignored, as by the JAX package's CLI: `--nodes 2` under
+    WORLD_SIZE=1 trains and scores as rank 0."""
+    for k in ('MASTER_ADDR', 'MASTER_PORT', 'JAX_COORDINATOR_ADDRESS'):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.delenv('WORLD_SIZE', raising=False)
-    distributed_init_if_needed(None)
-    distributed_init_if_needed(load_config(CONFIG, _overwrite(files)))
+    mesh.distributed_init_if_needed(None)
+    mesh.distributed_init_if_needed(load_config(CONFIG, _overwrite(files)))
     monkeypatch.setenv('WORLD_SIZE', '1')
-    distributed_init_if_needed(None)
-    with pytest.raises(NotImplementedError, match='nodes'):
-        cli_train.main(['--config_file', CONFIG, '--device', 'cpu',
-                        '--nodes', '2', '--overwrite',
-                        _overwrite(files, exp_name='refused')])
+    mesh.distributed_init_if_needed(None)
+    assert not mesh.is_initialized()
+    table = cli_train.main(['--config_file', CONFIG, '--device', 'cpu',
+                            '--nodes', '2', '--overwrite',
+                            _overwrite(files, exp_name='nodes',
+                                       fast_run=True)])
+    assert [r['modality'] for r in table] == ['ALL']
+    assert os.path.exists(os.path.join('nodes', 'checkpoint.0'))
+    assert os.path.exists(os.path.join('nodes', 'results.0.csv'))
+    assert not mesh.is_initialized()
 
 
 def test_datasets_and_just_plot(files):
@@ -276,7 +306,7 @@ def test_datasets_and_just_plot(files):
     config['dataset'] = 'CarsAugmented'
     with pytest.raises(ValueError, match='Unsupported dataset'):
         factory.get_dataset(config, 'train')
-    with pytest.raises(NotImplementedError, match='item 14'):
+    with pytest.raises(NotImplementedError, match='item 3'):
         cli_evaluate.main(['--config_file', CONFIG, '--device', 'cpu',
                            '--just_plot', 'drive/1', '--overwrite',
                            _overwrite(files, exp_name='plot')])

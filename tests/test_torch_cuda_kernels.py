@@ -257,3 +257,48 @@ def test_generator_teacher_backbones_run_the_kernels(mode, backbones,
         b = getattr(want, f).double().flatten()
         assert torch.isfinite(a).all()
         assert float(torch.corrcoef(torch.stack([a, b]))[0, 1]) > 0.999, f
+
+
+@pytest.mark.parametrize('args,size', [CASES[0], CASES[3]],
+                         ids=['expand_skip', 's2'])
+def test_kernels_launch_on_every_card(args, size, device):
+    """Each kernel launches on the card its tensors lie on, whatever the
+    current device: every visible card, with the current device set to
+    another one where there is one (the launchers keep their shared-memory
+    limits per device). A one-card machine checks device 0 only."""
+    n = torch.cuda.device_count()
+    for i in range(n):
+        card = torch.device('cuda', i)
+        with torch.cuda.device((i + 1) % n):
+            _block_against_plain(args, size, 2, card, seed=i)
+
+
+def test_sharded_serving_runs_the_kernels_on_every_replica(device):
+    """make_serving_fn over a mesh of every card, twice over (cuda:0,
+    cuda:0 on one card), on an odd batch at D2, 256 px: 23 launches of
+    each kernel per replica, and the Detections of the unsharded call
+    (boxes within 1e-3 px, scores within 1e-3: each image meets the same
+    kernels; cuDNN may take another algorithm at another batch)."""
+    from mm_distillnet_torch.models.efficientdet import EfficientDet
+    from mm_distillnet_torch.parallel.mesh import create_mesh
+    from mm_distillnet_torch.serving import make_serving_fn
+
+    size = 256
+    torch.manual_seed(0)
+    model = EfficientDet(20, 2, 8).eval()
+    sd = model.state_dict()
+    mesh = create_mesh() * 2
+    g = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn((2 * len(mesh) - 1, size, size, 8), generator=g,
+                    device=device)
+    want = make_serving_fn(model, sd, size, device=device)(x)
+    sharded = make_serving_fn(model, sd, size, mesh=mesh)
+    fm.reset_launches()
+    got = sharded(x)
+    torch.cuda.synchronize()
+    assert dict(fm.launches) == {k: 23 * len(mesh) for k in fm.launches}
+    assert got.valid.device == mesh[0] and got.valid.shape[0] == x.shape[0]
+    torch.testing.assert_close(got.valid, want.valid)
+    torch.testing.assert_close(got.classes, want.classes)
+    torch.testing.assert_close(got.boxes, want.boxes, rtol=0, atol=1e-3)
+    torch.testing.assert_close(got.scores, want.scores, rtol=0, atol=1e-3)

@@ -245,7 +245,10 @@ def test_unported_options_raise(setup, key, match):
 def test_generator_teacher_and_multi_device_eval_raise(setup):
     """A generator teacher runs (tests/test_torch_generator.py holds it to
     the reference) and reads every one of its modalities: a batch without
-    one raises. Multi-device evaluation still raises."""
+    one raises. Multi-device evaluation runs: on the CPU eval_devices=2
+    caps at the one device and gives eval_devices=1's table, and a
+    predictor over a mesh of two CPU devices gives the unsharded rows
+    (tests/test_torch_mesh.py holds both against the JAX package)."""
     nets = setup['nets']
     generator = EfficientDetGenerator(('rgb', 'sonar'), 20, -1,
                                       in_channels={'sonar': 2})
@@ -254,14 +257,22 @@ def test_generator_teacher_and_multi_device_eval_raise(setup):
     with pytest.raises(KeyError, match='sonar'):
         fn({'rgb': generator.state_dict()}, setup['batch'],
            setup['class_valid'], setup['lut'])
-    cfg = default_config(**{**SETTINGS, 'eval_devices': 2})
-    with pytest.raises(NotImplementedError, match='eval_devices'):
-        ev.evaluate({'rgb': (nets['rgb'][2], nets['rgb'][3])},
-                    (nets['audio'][2], nets['audio'][3]), setup['tset'],
-                    cfg, device='cpu')
-    with pytest.raises(NotImplementedError, match='mesh'):
-        ev.make_predict_fn(nets['audio'][2], SIZE, setup['tcfg'],
-                           mesh=object(), device='cpu')
+    tables = [ev.evaluate(
+        {'rgb': (nets['rgb'][2], nets['rgb'][3])},
+        (nets['audio'][2], nets['audio'][3]), setup['tset'],
+        default_config(**{**SETTINGS, 'eval_devices': n,
+                          'exp_name': f'devices{n}'}), device='cpu')
+        for n in (1, 2)]
+    assert [{k: v for k, v in r.items() if k != 'exp_name'}
+            for r in tables[0]] == \
+        [{k: v for k, v in r.items() if k != 'exp_name'} for r in tables[1]]
+    _, _, module, sd = nets['audio']
+    cpu = torch.device('cpu')
+    rows = [ev.make_predict_fn(module, SIZE, setup['tcfg'], variables=sd,
+                               mesh=mesh, device='cpu')(
+        sd, setup['batch']['audio'][:1], setup['class_valid'],
+        setup['lut'])[0] for mesh in (None, (cpu, cpu))]
+    assert torch.equal(rows[0], rows[1])
 
 
 def test_default_device_raises_without_cuda(setup):

@@ -313,9 +313,27 @@ def test_merge_audio_batch01_matches_reference(dtype):
         np.testing.assert_array_max_ulp(got[1], want[1], maxulp=2)
 
 
-def test_per_replica_bn_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match='item 13'):
-        ts.make_train_step({}, _cfg(), *TABLES, bn_mode='per_replica',
+def test_per_replica_bn_mode_is_not_ported_yet(ref):
+    """bn_mode='per_replica' is ported (tests/test_torch_distributed.py
+    holds two ranks to JAX make_train_step_per_replica_bn). In one
+    process it is the plain step: the reference's SGD step at the bounds
+    of test_sgd_step_matches_reference. An unknown mode raises."""
+    teachers, state, batch = _port(ref, **SGD)
+    step = ts.make_train_step_per_replica_bn(
+        teachers, _cfg(), *TABLES, compute_dtype=torch.float32,
+        device='cpu')
+    _close(step(state, batch), ref['step_metrics'])
+    want = state_dict_from_flax(ref['stepped'])
+    got = state.model.state_dict()
+    for k, w in want.items():
+        if k.endswith('num_batches_tracked'):
+            continue
+        stat = k.endswith(('running_mean', 'running_var'))
+        np.testing.assert_allclose(got[k].numpy(), w.numpy(),
+                                   rtol=1e-4 if stat else 1e-5, atol=1e-6,
+                                   err_msg=k)
+    with pytest.raises(ValueError, match='per_replica'):
+        ts.make_train_step({}, _cfg(), *TABLES, bn_mode='replica',
                            device='cpu')
 
 
