@@ -147,9 +147,38 @@ Phases, each of which fails the run on any error:
      ms, all_reduce ms, peak memory per rank and the phase's seconds are
      printed beside the card's name and power limit. Two ranks on one
      card measure the path, not multi-card speed;
-  10. report: one JSON line of kernel results (launches summed over the
-     serving, teacher, train, cli, data and dist phases), then as the last
-     line {"ok": true, "device": {...}}.
+  10. quant: the int8 PTQ path (quant.py) of the slice phase's seeded
+     student at D2@768, batch 8. build_quant_pack on the batch through the
+     bf16 module tree; one recorded forward: every quantized conv's int32
+     accumulators from its route (csrc/int8_conv.cu `int8_conv2d`, or
+     torch._int_mm for the 1x1s) must equal the plain version's (an fp64
+     conv of the int8 values), the 1x1s also through the kernel, and each
+     call is timed (CUDA-graph replays) beside the plain version and its
+     bound. make_serving_fn(quant_pack=) serves three batches with every
+     count set to 0 just before: each route must have launched exactly
+     its calls per forward times 3, and no MBConv kernel. Against the
+     bf16 fused predictor on the same batch the outputs must correlate
+     above QUANT_CORR_FLOOR and at least QUANT_MATCH_FLOOR of its
+     detections be found at IoU 0.5 with the same class. Host ms, device
+     busy ms and launches of a serve call; then evaluate() with
+     quant_inference=True on a Freiburg tree (16 test frames, the shipped
+     config, teachers on the MBConv kernels: 69 launches of each per
+     batch, the int8 routes' calls per batch), frames/s;
+  11. export: the slice phase's student served by make_serving_fn (bf16,
+     the MBConv kernels) is exported with export_predictor on the card
+     (seconds, file size) and replayed by load_predictor in a fresh
+     process (this script with --export-worker): its Detections must
+     equal the live predictor's bit for bit, with 23 launches of each
+     kernel per call. A predictor built on the CPU and exported with
+     platforms=('cuda',) is loaded on the card and must find 90% of the
+     card's detections within 1 px (the slice phase's gate). The serve
+     call's device time from utils.profiling.device_time (a CUDA graph of
+     the call) beside graph_ms and the host clock;
+  12. report: one JSON line of kernel results (launches summed over the
+     serving, teacher, train, cli, data, dist, quant and export phases;
+     int8_conv2d's over the quant phase, its ms, plain ms and bound summed
+     over one forward's calls), then as the last line {"ok": true,
+     "device": {...}}.
 
 Per-block numbers go to chiprun_out/chip_smoke.json. Without a CUDA device
 the script exits non-zero and prints no result.
@@ -206,12 +235,17 @@ from mm_distillnet_torch.ops.anchors import anchor_table
 from mm_distillnet_torch.ops.postprocess import class_validity_table
 from mm_distillnet_torch.ops.resize import maybe_stretch_mel_axis
 from mm_distillnet_torch.parallel import mesh
-from mm_distillnet_torch.serving import make_serving_fn, serve_many
+from mm_distillnet_torch.serving import (export_predictor, load_predictor,
+                                         make_serving_fn, serve_many)
 from mm_distillnet_torch.cli import evaluate as cli_evaluate
 from mm_distillnet_torch.cli import mp3_to_pkl as cli_mp3_to_pkl
 from mm_distillnet_torch.cli import train as cli_train
 from mm_distillnet_torch.train import checkpoint, trainer
 from mm_distillnet_torch.train.optim import apply_gradients, build_scheduler
+from mm_distillnet_torch import quant
+from mm_distillnet_torch.ops import int8_conv
+from mm_distillnet_torch.utils import profiling
+from mm_distillnet_torch.utils.profiling import graph_ms
 
 IMAGE_SIZE = 768
 IN_CHANNELS = 8
@@ -222,6 +256,9 @@ SOURCES = {'mbconv_expand_dw': 'mm_distillnet_torch/csrc/mbconv_expand_dw.cu',
            'mbconv_se': 'mm_distillnet_torch/csrc/mbconv.cu',
            'mbconv_project': 'mm_distillnet_torch/csrc/mbconv_project.cu'}
 REPLACES = 'mm_distillnet_tpu/ops/pallas_mbconv.py:137'
+# the int8 conv has no Pallas kernel to replace: the JAX package's s8 x s8
+# -> s32 lax.conv_general_dilated
+INT8_REPLACES = 'mm_distillnet_tpu/quant.py:209'
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / 'chiprun_out'
 RECIPE = ROOT / 'configs' / 'mm-distillnet.cfg'
@@ -268,26 +305,6 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int = 20, replays: int = 3) -> float:
-    """Mean device time of fn(): a CUDA graph of `reps` calls, replayed."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
 
 
 def host_ms(fn, reps: int) -> float:
@@ -2242,14 +2259,381 @@ def dist_phase(batch: int, seed: int, device, card: str):
     return {'counts': counts, 'readings': readings, 'sections': sections}
 
 
+# ---- phase 10: quant ----
+
+QUANT_DIR = ROOT / 'build' / 'quant_smoke'
+# the int8 path against the bf16 fused predictor on the same seeded
+# student and batch. The seeded detector scores whole neighbourhoods of
+# anchors alike (see the teacher phase), so the int8 error reorders them
+# and moves many boxes by more than a pixel: detections are matched at IoU
+# 0.5 with the same class, the outputs by correlation. Seeds 0-2 on an
+# H100 (PERF.md): 44.6-57.4% matched; correlation 0.974-0.986 (scores),
+# 0.986-0.992 (regression), 0.976-0.989 (logits).
+QUANT_MATCH_FLOOR = 0.3
+QUANT_CORR_FLOOR = 0.95
+
+
+@contextlib.contextmanager
+def recorded_int8_calls(calls: list):
+    """Every quantized conv's int32 accumulation, with its operands, its
+    route (int8_conv.route, as conv_int32 decides it) and its result,
+    appended to `calls` while the context lasts."""
+    saved = int8_conv.conv_int32
+
+    def record(qx, qw, stride, padding, groups):
+        out = saved(qx, qw, stride, padding, groups)
+        calls.append((qx, qw, tuple(stride), padding, groups,
+                      int8_conv.route(qx.shape, qw.shape, stride, padding,
+                                      groups), out))
+        return out
+
+    int8_conv.conv_int32 = record
+    try:
+        yield
+    finally:
+        int8_conv.conv_int32 = saved
+
+
+def check_int8_calls(calls: list) -> dict:
+    """Each call's int32 accumulators against the plain version (exact),
+    the 1x1 GEMM calls also through the kernel; per route the summed
+    device ms (CUDA-graph replays), plain ms, bound and launches of one
+    forward."""
+    totals = {r: {'calls': 0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
+                  'bound_bytes_ms': 0.0, 'max_abs_err': 0}
+              for r in ('int8_conv2d', 'int_mm')}
+    shapes = []
+    for qx, qw, stride, padding, groups, launch, out in calls:
+        want = int8_conv.int8_conv2d_reference(qx, qw, stride, padding,
+                                               groups)
+        got = {launch: out}
+        if launch == 'int_mm':
+            got['int8_conv2d'] = int8_conv.int8_conv2d(qx, qw, stride,
+                                                       padding, groups)
+        for r, g in got.items():
+            e = int((g.long() - want.long()).abs().max().item())
+            totals[r]['max_abs_err'] = max(totals[r]['max_abs_err'], e)
+            if not torch.equal(g, want):
+                raise AssertionError(f'{r} {tuple(qx.shape)} x '
+                                     f'{tuple(qw.shape)}: int32 accumulators'
+                                     ' differ from the plain version')
+        if launch == 'int_mm':
+            ms = graph_ms(lambda: int8_conv.int_mm(qx, qw), 5, 2)
+        else:
+            ms = graph_ms(lambda: int8_conv.int8_conv2d(
+                qx, qw, stride, padding, groups), 5, 2)
+        plain = time_ms(lambda: int8_conv.int8_conv2d_reference(
+            qx, qw, stride, padding, groups), 2, 1)
+        bound, by = int8_conv.bound_ms(tuple(qx.shape), tuple(qw.shape),
+                                       tuple(out.shape))
+        t = totals[launch]
+        t['calls'] += 1
+        t['ms'] += ms
+        t['plain_ms'] += plain
+        t['bound_ms'] += bound
+        if by == 'bytes':
+            t['bound_bytes_ms'] += bound
+        shapes.append({'route': launch, 'x': list(qx.shape),
+                       'w': list(qw.shape), 'stride': list(stride),
+                       'groups': groups, 'ms': ms, 'plain_ms': plain,
+                       'bound_ms': bound, 'bound_by': by})
+    return {'totals': totals, 'shapes': shapes}
+
+
+def expect_int8(what: str, per_route: dict) -> dict:
+    counts = dict(int8_conv.launches)
+    if counts != per_route:
+        raise AssertionError(f'{what}: int8 routes launched {counts}, '
+                             f'expected {per_route}')
+    return counts
+
+
+def quant_phase(batch: int, seed: int, device, card: str):
+    """The int8 PTQ path of the shipped student at D2@768: the pack, both
+    int8 routes against the plain version on every quantized conv's own
+    input, make_serving_fn(quant_pack=) against the bf16 fused predictor,
+    and evaluate() with quant_inference=True on a Freiburg tree."""
+    t0 = time.perf_counter()
+    sections = {}
+    model = seeded_detector(seed, batch, device)
+    sd = model.state_dict()
+    rng = np.random.default_rng(seed + 2)
+    images = rng.standard_normal(
+        (batch, IMAGE_SIZE, IMAGE_SIZE, IN_CHANNELS), dtype=np.float32)
+    x = torch.as_tensor(images, device=device)
+
+    # (1) the pack, calibrated on the batch through the module tree the
+    # serving function runs (bf16)
+    net = fused_forward.eval_module(model, sd, device, torch.bfloat16)
+    t = time.perf_counter()
+    pack = quant.build_quant_pack(net, x, [x], state_dict=sd)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t
+
+    # (2) one forward recorded: every call's operands through both routes
+    calls = []
+    int8_conv.reset_launches()
+    with recorded_int8_calls(calls):
+        quant.quantized_apply(net, pack, x)
+    torch.cuda.synchronize()
+    per_forward = {r: sum(c[5] == r for c in calls)
+                   for r in ('int8_conv2d', 'int_mm')}
+    expect_int8('the recorded forward', per_forward)
+    checked = check_int8_calls(calls)
+    del calls
+    sections['pack and routes'] = time.perf_counter() - t0
+    print(f'{card} | int8 pack of D2@768: {len(pack.qkernels)} convs '
+          f'built in {pack_s:.2f} s; one '
+          f'forward: {json.dumps(per_forward)} calls, every int32 '
+          'accumulator equal to the plain version\'s; per route: '
+          + json.dumps(checked['totals']), flush=True)
+
+    # (3) make_serving_fn(quant_pack=): the main path, counts 0 just
+    # before and read just after
+    serve = make_serving_fn(model, sd, IMAGE_SIZE, quant_pack=pack,
+                            device=device)
+    torch.cuda.synchronize()
+    int8_conv.reset_launches()
+    fm.reset_launches()
+    first = serve(x)
+    again = serve_many(serve, np.concatenate([images, images[:3]]), batch)
+    torch.cuda.synchronize()
+    counts = expect_int8('quantized serving',
+                         {r: 3 * n for r, n in per_forward.items()})
+    expect_launches('quantized serving (no MBConv kernel)', 0)
+    if not (torch.isfinite(first.boxes).all() and np.isfinite(
+            again.scores).all()):
+        raise AssertionError('quantized serving: non-finite detections')
+    np.testing.assert_array_equal(again.valid[:batch],
+                                  first.valid.cpu().numpy())
+
+    # (4) against the bf16 fused predictor (the kernels) on the same batch
+    fused = make_serving_fn(model, sd, IMAGE_SIZE, device=device)
+    fm.reset_launches()
+    det_f = fused(x)
+    out_f = fused.forward(x)
+    torch.cuda.synchronize()
+    for name, c in expect_launches('bf16 fused predictor',
+                                   2 * BLOCKS).items():
+        counts[name] = c
+    out_q = serve.forward(x)
+    agree = agreement(out_q, out_f)
+    matched = {'1px': match_detections(det_f, first),
+               'iou0.5': match_detections(det_f, first, min_iou=0.5)}
+    share = matched['iou0.5'][0] / max(matched['iou0.5'][1], 1)
+    print(f'{card} | int8 against the bf16 fused predictor: corr '
+          f'{json.dumps(agree)}; detections matched {json.dumps(matched)}, '
+          f'share at IoU 0.5 {share:.4f}', flush=True)
+
+    # (5) time: host ms, device busy ms and launches of a serve call
+    timing = {'serve_ms': host_ms(lambda: serve(x), 3),
+              'forward_ms': host_ms(lambda: serve.forward(x), 3),
+              'bf16_fused_serve_ms': host_ms(lambda: fused(x), 3)}
+    for part, fn in (('serve', lambda: serve(x)),
+                     ('forward', lambda: serve.forward(x))):
+        prof = device_breakdown(fn, 2)
+        timing[part] = {k: v for k, v in prof.items() if k != 'top'}
+        if prof['measured']:
+            timing[part]['busy_share'] = prof['busy_ms'] / \
+                timing[f'{part}_ms']
+    print(f'{card} | quantized serving D2@768 batch {batch}: '
+          + json.dumps(timing), flush=True)
+    sections['serving'] = time.perf_counter() - t0
+
+    # (6) evaluate() with quant_inference=True on a Freiburg tree: the
+    # teachers on the MBConv kernels, the student on the int8 path
+    shutil.rmtree(QUANT_DIR, ignore_errors=True)
+    tree = QUANT_DIR / 'freiburg'
+    write_freiburg_tree(tree, {m: [FIXTURES / f'{m}.jpg'] for m in TEACHERS},
+                        SPLIT_FRAMES, seed)
+    config = load_config(str(RECIPE), json.dumps(dict(
+        data_path=str(tree), batch_size=batch, eval_batch_size=batch,
+        fused_inference=True, quant_inference=True, eval_devices=1,
+        exp_name=str(OUT_DIR / 'quant_eval'))))
+    test_set = MultimodalDetection(config, 'test')
+    teachers = {}
+    for i, m in enumerate(TEACHERS):
+        g = torch.Generator(device=device).manual_seed(seed + 20 + i)
+        calib = torch.randn((batch, IMAGE_SIZE, IMAGE_SIZE,
+                             {'thermal': 1}.get(m, 3)), generator=g,
+                            device=device)
+        t_model = seeded_detector(seed + 10 + i, batch, device, calib)
+        teachers[m] = (t_model, t_model.state_dict())
+    n_batches = -(-len(test_set) // batch)
+    torch.cuda.synchronize()
+    int8_conv.reset_launches()
+    fm.reset_launches()
+    table = evaluate(teachers, (model, sd), test_set, config, device=device)
+    torch.cuda.synchronize()
+    got = expect_int8('quantized evaluate()',
+                      {r: n_batches * n for r, n in per_forward.items()})
+    for name, c in expect_launches('quantized evaluate() teachers',
+                                   n_batches * BLOCKS * len(TEACHERS)
+                                   ).items():
+        counts[name] += c
+    for r, c in got.items():
+        counts[r] += c
+    numbers = {k: v for k, v in table[0].items()
+               if k not in ('exp_name', 'modality')}
+    if not all(np.isfinite(v) for v in numbers.values()):
+        raise AssertionError(f'quantized evaluate() returned {table}')
+    with open(OUT_DIR / 'quant_eval' / 'resources.0.csv', newline='') as f:
+        fps = float(next(csv.DictReader(f))['FramesPerSec'])
+    print(f'{card} | evaluate() with quant_inference=True on '
+          f'{len(test_set)} Freiburg frames: {fps:.2f} frames/s, '
+          + json.dumps(numbers), flush=True)
+    shutil.rmtree(QUANT_DIR)
+    sections['evaluate'] = time.perf_counter() - t0
+    print(f'quant phase seconds elapsed: {json.dumps(sections)}', flush=True)
+
+    # gates: the int8 path stays near the bf16 one (see QUANT_*_FLOOR)
+    if not share >= QUANT_MATCH_FLOOR:
+        raise AssertionError(f'int8 detections: {share:.3f} of the bf16 '
+                             f'predictor\'s matched at IoU 0.5, below '
+                             f'{QUANT_MATCH_FLOOR}')
+    for f in ('classification', 'regression', 'logits'):
+        if not agree[f] > QUANT_CORR_FLOOR:
+            raise AssertionError(f'int8 {f} correlation {agree[f]} to the '
+                                 f'bf16 predictor <= {QUANT_CORR_FLOOR}')
+    return {'counts': counts, 'pack_s': pack_s, 'convs': len(pack.qkernels),
+            'per_forward': per_forward, 'int8': checked,
+            'vs_bf16': {'corr': agree, 'matched': matched,
+                        'share_iou0.5': share},
+            'timing': timing,
+            'evaluate': {'frames_per_s': fps, **numbers},
+            'sections': sections}
+
+
+# ---- phase 11: export ----
+
+EXPORT_DIR = ROOT / 'build' / 'export_smoke'
+EXPORT_TIMEOUT_S = 600
+
+
+def export_worker(spec: dict) -> None:
+    """The fresh process of phase 11: load the artifact (no model is
+    built), run it on the saved batch twice, save its Detections and the
+    launches of each call."""
+    predict = load_predictor(spec['path'], device=spec['device'])
+    x = torch.load(spec['x'], map_location=spec['device'])
+    launches = []
+    for _ in range(2):
+        fm.reset_launches()
+        dets = predict(x)
+        _sync(spec['device'])
+        launches.append(dict(fm.launches))
+    torch.save({'detections': [t.cpu() for t in dets],
+                'launches': launches}, spec['out'])
+
+
+def export_phase(batch: int, seed: int, device, card: str):
+    """export_predictor / load_predictor at D2@768: the card's predictor
+    exported and replayed bit for bit in a fresh process, a CPU
+    predictor's export moved to the card, the serve call's device time."""
+    t0 = time.perf_counter()
+    sections = {}
+    model = seeded_detector(seed, batch, device)
+    sd = model.state_dict()
+    rng = np.random.default_rng(seed + 2)
+    x = torch.as_tensor(rng.standard_normal(
+        (batch, IMAGE_SIZE, IMAGE_SIZE, IN_CHANNELS), dtype=np.float32),
+        device=device)
+    serve = make_serving_fn(model, sd, IMAGE_SIZE, device=device)
+    want = serve(x)
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    EXPORT_DIR.mkdir(parents=True)
+
+    # (1) export on the card
+    path = EXPORT_DIR / 'predictor.pt2'
+    t = time.perf_counter()
+    export_predictor(serve, batch, IMAGE_SIZE, IN_CHANNELS, str(path))
+    export_s = time.perf_counter() - t
+    size_mb = path.stat().st_size / 2 ** 20
+    sections['export'] = time.perf_counter() - t0
+
+    # (2) replay in a fresh process: bit for bit, 23 launches a call
+    torch.save(x.cpu(), EXPORT_DIR / 'x.pt')
+    spec = {'path': str(path), 'x': str(EXPORT_DIR / 'x.pt'),
+            'out': str(EXPORT_DIR / 'replayed.pt'), 'device': str(device)}
+    (EXPORT_DIR / 'spec.json').write_text(json.dumps(spec))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / 'chip_smoke.py'), '--export-worker',
+         '--spec', str(EXPORT_DIR / 'spec.json')], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=EXPORT_TIMEOUT_S)
+    replay_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f'the replay process failed:\n{proc.stdout}\n'
+                             f'{proc.stderr[-4000:]}')
+    replayed = torch.load(EXPORT_DIR / 'replayed.pt')
+    for field, got, w in zip(want._fields, replayed['detections'], want):
+        if not torch.equal(got, w.cpu()):
+            raise AssertionError(f'the replayed artifact\'s {field} differ '
+                                 'from make_serving_fn\'s')
+    for i, c in enumerate(replayed['launches']):
+        expect_counts(f'replayed artifact, call {i}', c, BLOCKS)
+    counts = {n: 2 * BLOCKS for n in fm.launches}
+    sections['replay'] = time.perf_counter() - t0
+
+    # (3) a CPU predictor exported for the card (platforms=('cuda',)),
+    # loaded here: phase 4's detection-match gate against the card's own
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_serve = make_serving_fn(cpu_model, cpu_model.state_dict(),
+                                IMAGE_SIZE, device='cpu')
+    path_cpu = EXPORT_DIR / 'predictor_from_cpu.pt2'
+    t = time.perf_counter()
+    export_predictor(cpu_serve, batch, IMAGE_SIZE, IN_CHANNELS,
+                     str(path_cpu), platforms=(device.type,))
+    export_cpu_s = time.perf_counter() - t
+    moved = load_predictor(str(path_cpu), device=device)
+    fm.reset_launches()
+    det_m = moved(x)
+    torch.cuda.synchronize()
+    for name, c in expect_launches('CPU export on the card',
+                                   BLOCKS).items():
+        counts[name] += c
+    got, total = match_detections(want, det_m)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(det_m, want))
+    if total == 0 or got < 0.9 * total:
+        raise AssertionError(f'CPU export on the card: {got}/{total} '
+                             'detections matched within 1 px')
+    sections['cpu export'] = time.perf_counter() - t0
+    result = {'export_s': export_s, 'file_mb': size_mb,
+              'replay_process_s': replay_s, 'export_from_cpu_s': export_cpu_s,
+              'cpu_export_matched_1px': [got, total],
+              'cpu_export_bit_equal': bit_equal}
+    print(f'{card} | export D2@768 batch {batch}: ' + json.dumps(result),
+          flush=True)
+    shutil.rmtree(EXPORT_DIR)
+
+    # (4) the serve call's device time: utils.profiling.device_time (a
+    # CUDA graph of the call, replayed) beside graph_ms and the host clock
+    timing = {
+        'device_time_ms': profiling.device_time(serve, (x,), iters=3) * 1e3,
+        'graph_ms': graph_ms(lambda: serve(x), 3, 1),
+        'host_ms': host_ms(lambda: serve(x), 3)}
+    result.update(timing)
+    print(f'{card} | serve call D2@768 batch {batch}: ' + json.dumps(timing),
+          flush=True)
+    sections['device time'] = time.perf_counter() - t0
+    print(f'export phase seconds elapsed: {json.dumps(sections)}',
+          flush=True)
+    return {'counts': counts, **result, 'sections': sections}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--batch', type=int, default=8)
     p.add_argument('--dist-worker', choices=('steps', 'cli'),
                    help='run as a rank of phase 9 (started by the phase)')
-    p.add_argument('--spec', help="the phase 9 worker's JSON spec")
+    p.add_argument('--export-worker', action='store_true',
+                   help='run as the replay process of phase 11')
+    p.add_argument('--spec', help="a worker's JSON spec (phases 9, 11)")
     a = p.parse_args(argv)
+    if a.export_worker:
+        export_worker(json.loads(Path(a.spec).read_text()))
+        return 0
     if a.dist_worker:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -2288,34 +2672,43 @@ def main(argv=None) -> int:
                   'by ptxas')
 
     totals, rows = kernel_phase(a.batch, a.seed, device)
-    served = slice_phase(a.batch, a.seed, device)
-    taught = teacher_phase(a.batch, a.seed, device, card)
-    trained = train_phase(a.batch, a.seed, device, card)
-    clis = cli_phase(a.batch, a.seed, device, card)
-    data = data_phase(a.batch, a.seed, device, card)
-    dist_run = dist_phase(a.batch, a.seed, device, card)
+    results = {'slice': slice_phase(a.batch, a.seed, device),
+               'teachers': teacher_phase(a.batch, a.seed, device, card),
+               'train': train_phase(a.batch, a.seed, device, card),
+               'cli': cli_phase(a.batch, a.seed, device, card),
+               'data': data_phase(a.batch, a.seed, device, card),
+               'dist': dist_phase(a.batch, a.seed, device, card),
+               'quant': quant_phase(a.batch, a.seed, device, card),
+               'export': export_phase(a.batch, a.seed, device, card)}
 
     kernels = []
     for name, t in totals.items():
         kernels.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES,
-            'launches': (served['counts'][name] + taught['counts'][name]
-                         + trained['counts'][name] + clis['counts'][name]
-                         + data['counts'][name]
-                         + dist_run['counts'][name]),
+            'launches': sum(r['counts'][name] for r in results.values()),
             'max_abs_err': t['max_abs_err'], 'ms': t['ms'],
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': ('bytes' if t['bound_bytes_ms'] * 2 >= t['bound_ms']
                          else 'operations'),
             'library_ms': None})
+    t = results['quant']['int8']['totals']['int8_conv2d']
+    kernels.append({
+        'name': 'int8_conv2d', 'route': 'cuda',
+        'source': 'mm_distillnet_torch/csrc/int8_conv.cu',
+        'replaces': INT8_REPLACES,
+        'launches': results['quant']['counts']['int8_conv2d'],
+        'max_abs_err': t['max_abs_err'], 'ms': t['ms'],
+        'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+        'bound_by': ('bytes' if t['bound_bytes_ms'] * 2 >= t['bound_ms']
+                     else 'operations'),
+        'library_ms': None})
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps({
         'card': card, 'kind': kind, 'torch': torch.__version__,
         'cuda': torch.version.cuda, 'batch': a.batch, 'seed': a.seed,
         'build_s': build_s, 'kernels': kernels, 'blocks': rows,
-        'slice': served, 'teachers': taught, 'train': trained,
-        'cli': clis, 'data': data, 'dist': dist_run}, indent=1))
+        **results}, indent=1, default=str))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

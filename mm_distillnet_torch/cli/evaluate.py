@@ -9,8 +9,10 @@
 to `{exp_name}/results.{rank}.csv`. Started by torchrun (or with the JAX
 package's or the config's world keys), every rank evaluates the whole
 split on its own card and writes its own files, as the JAX package's
-evaluate() does per process. `--just_plot` draws with cv2 in the JAX
-package and raises here until utils/plotting.py is ported.
+evaluate() does per process. `--just_plot <frame id>` writes the debug
+plots of that frame (utils/plotting.py: attention maps, the student's and
+the fused teachers' boxes over each render, one spectrogram image per
+microphone) under `{exp_name}/` instead of evaluating.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from ..data.factory import get_dataset
 from ..device import resolve_device
 from ..evaluation import evaluate
 from ..models.registry import load_model, maybe_load_checkpoint
+from ..utils.plotting import plot_audio_predictions
 from ..utils.reproducibility import make_reproducible_run
 from .train import join_world, load_teachers
 
@@ -60,10 +63,6 @@ def main(argv=None):
     config = load_config(args.config_file, args.overwrite, extra=None
                          if args.rank is None else {'rank': args.rank})
     dev = join_world(config, args.device)
-    if args.just_plot:
-        raise NotImplementedError(
-            '--just_plot draws with cv2 (utils/plotting.py); it is not '
-            'ported yet (ROADMAP Queue 1 item 3)')
     make_reproducible_run(config.getint('seed', fallback=-1))
 
     teacher_models = load_teachers(config)
@@ -77,6 +76,11 @@ def main(argv=None):
         test_set = get_dataset(config, config.get('eval_split', 'test'))
     except FileNotFoundError:
         test_set = get_dataset(config, 'val')
+
+    if args.just_plot:
+        plot_audio_predictions(teacher_models, student_model, test_set,
+                               config, args.just_plot, device=dev)
+        return None
 
     ap_table = evaluate(teacher_models, student_model, test_set, config,
                         device=dev)

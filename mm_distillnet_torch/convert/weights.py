@@ -297,3 +297,35 @@ def load_zoo_backbone(path: str, template: Mapping[str, torch.Tensor],
     """Read a model-zoo EfficientNet .pth and bootstrap the backbone."""
     return bootstrap_backbone_from_zoo(read_torch_checkpoint(path),
                                        template, strict)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's int8 pack
+# ---------------------------------------------------------------------------
+
+def port_module_name(flax_path: str) -> str:
+    """The port's name of the nn.Conv2d at a '/'-joined flax module path
+    ('backbone_net/_blocks_0/_expand_conv' ->
+    'backbone_net.model._blocks.0._expand_conv.conv')."""
+    return '.'.join(_module_path(flax_path.split('/')))
+
+
+def quant_pack_from_jax(pack, specs: Mapping[str, Mapping[str, Any]]):
+    """The JAX package's QuantPack (mm_distillnet_tpu/quant.py) as the
+    port's: flax paths -> the port's module names, HWIO int8 kernels ->
+    OIHW, scales as fp32 tensors (CPU). `specs` is the port's
+    collect_conv_specs of the same network; the two must select the same
+    convs."""
+    from ..quant import QuantPack
+    names = {port_module_name(p): p for p in pack.qkernels}
+    if set(names) != set(specs):
+        raise ValueError(f'the packs select different convs: '
+                         f'{sorted(set(names) ^ set(specs))[:8]}')
+    qkernels, wscales, ascales = {}, {}, {}
+    for name, path in names.items():
+        q = np.asarray(pack.qkernels[path], np.int8).transpose(3, 2, 0, 1)
+        qkernels[name] = torch.from_numpy(np.ascontiguousarray(q))
+        wscales[name] = torch.from_numpy(
+            np.asarray(pack.wscales[path], np.float32).copy())
+        ascales[name] = torch.tensor(np.float32(pack.ascales[path]))
+    return QuantPack(qkernels, wscales, ascales)

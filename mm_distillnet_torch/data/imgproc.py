@@ -52,10 +52,12 @@ def bgr_to_rgb(img: np.ndarray) -> np.ndarray:
 def normalize_minmax(src: np.ndarray, alpha: float = 0.0,
                      beta: float = 255.0) -> np.ndarray:
     """cv2.normalize(src, None, alpha, beta, cv2.NORM_MINMAX) for an
-    integer image: the result keeps src's dtype."""
-    if src.dtype not in (np.uint8, np.uint16):
-        raise ValueError(f'normalize_minmax takes uint8 or uint16, not '
-                         f'{src.dtype}')
+    integer or float32 image: the result keeps src's dtype (a float32
+    product is not exact in float64, so there the result may sit 1 ulp
+    from cv2's)."""
+    if src.dtype not in (np.uint8, np.uint16, np.float32):
+        raise ValueError(f'normalize_minmax takes uint8, uint16 or float32, '
+                         f'not {src.dtype}')
     smin, smax = float(src.min()), float(src.max())
     dmin, dmax = min(alpha, beta), max(alpha, beta)
     eps = float(np.finfo(np.float64).eps)
@@ -65,6 +67,8 @@ def normalize_minmax(src: np.ndarray, alpha: float = 0.0,
     # fma in float32: the float64 product is exact, one rounding to float32
     t = (src.astype(np.float64) * float(np.float32(scale))
          + float(np.float32(shift))).astype(np.float32)
+    if src.dtype == np.float32:
+        return t
     info = np.iinfo(src.dtype)
     return np.clip(np.rint(t), info.min, info.max).astype(src.dtype)
 

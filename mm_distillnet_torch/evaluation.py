@@ -28,8 +28,10 @@ device (folded weights and kernels included), pad the batch to the mesh
 (`pad_batch_to_devices`), run each part on its device and gather the real
 rows on the first; `evaluate` builds one from config `eval_devices`,
 capped at the process's own devices (the JAX package's SPMD eval over
-the local devices). Not ported, and raising NotImplementedError:
-`quant_inference` and `approx_topk`.
+the local devices). With config `quant_inference=True` `evaluate`
+calibrates the int8 pack (quant.py) on the first min(len, 8) test frames
+and the student predicts through it; config `approx_topk=True` selects
+candidates as the JAX package's `approx_max_k` does off the TPU: exactly.
 """
 from __future__ import annotations
 
@@ -50,11 +52,12 @@ from .data.loader import DataLoader
 from .device import resolve_device
 from .distill.pseudo_labels import fuse_teacher_labels, teacher_detections
 from .models.efficientdet_generator import EfficientDetGenerator
-from .models.fused_forward import make_fused_predictor
+from .models.fused_forward import eval_module, make_fused_predictor
 from .ops.anchors import anchor_table
 from .ops.postprocess import detections_to_labels, postprocess_detections
 from .ops.resize import maybe_stretch_mel_axis
 from .parallel import mesh as meshes
+from .quant import build_quant_pack, pack_to, quantized_apply
 from .train.trainer import distill_config_from, label_tables
 from .utils.metrics import (ap_per_class, get_batch_central_distances,
                             get_batch_statistics, labels_to_lists)
@@ -73,23 +76,17 @@ def count_params(variables) -> int:
                    if not k.endswith(_BUFFER_SUFFIXES)))
 
 
-def _refuse_unported(config, quant_pack=None) -> None:
-    if quant_pack is not None or \
-            config.getboolean('quant_inference', fallback=False):
-        raise NotImplementedError(
-            'quant_inference (the int8 path of quant.py) is not ported')
-    if config.getboolean('approx_topk', fallback=False):
-        raise NotImplementedError(
-            'approx_topk wraps the TPU-only approx_max_k; not ported')
-
-
-def _eval_forward(model, variables, image_size: int, config, dev):
-    """fn(variables, x) -> DetectorOutput in eval mode. With `variables`
-    given and config `fused_inference=True` the weights are folded once and
-    the backbone runs the MBConv kernels; otherwise a copy of `model` on
-    `dev` holds the state_dict it was last called with."""
+def _eval_forward(model, variables, image_size: int, config, dev,
+                  quant_pack=None):
+    """fn(variables, x) -> DetectorOutput in eval mode. With `quant_pack`
+    a copy of `model` on `dev`, holding the state_dict it was last called
+    with, runs the int8 path (quant.quantized_apply; the MBConv kernels are
+    bypassed, as in the JAX package). Else, with `variables` given and
+    config `fused_inference=True`, the weights are folded once and the
+    backbone runs the MBConv kernels; otherwise the copy runs its fp
+    forward."""
     dtype = compute_dtype_from(config)
-    if variables is not None and \
+    if quant_pack is None and variables is not None and \
             config.getboolean('fused_inference', fallback=False):
         fused = make_fused_predictor(model, variables, image_size,
                                      dtype=dtype, device=dev)
@@ -99,13 +96,19 @@ def _eval_forward(model, variables, image_size: int, config, dev):
     if variables is not None:
         net.load_state_dict(variables)
         loaded = variables
+    run = net
+    if quant_pack is not None:
+        pack = pack_to(quant_pack, dev)
+
+        def run(x):
+            return quantized_apply(net, pack, x)
 
     def forward(vs, x):
         nonlocal loaded
         if vs is not None and vs is not loaded:
             net.load_state_dict(vs)
             loaded = vs
-        return net(x)
+        return run(x)
 
     return forward
 
@@ -118,24 +121,27 @@ def make_predict_fn(model, image_size: int, config, variables=None,
     `variables` is a state_dict. With config `fused_inference=True` (and
     `variables` given here) the backbone runs through the fused MBConv path
     (models.fused_forward) with the weights folded once; the `variables`
-    of a call are then not looked at. A compact-audio input (80 mel rows)
-    is stretched on the device first.
+    of a call are then not looked at. With `quant_pack`
+    (quant.build_quant_pack) the forward runs the int8 path instead. A
+    compact-audio input (80 mel rows) is stretched on the device first.
 
     With `mesh` (a tuple of devices; `device` is then not read) the batch
     is split over one replica per device and the rows and features come
     back on mesh[0]."""
-    _refuse_unported(config, quant_pack)
     if mesh is not None:
         return meshes.over_mesh(mesh, [
             make_predict_fn(model, image_size, config, variables,
-                            device=d) for d in mesh], batch_arg=1)
+                            quant_pack=quant_pack, device=d) for d in mesh],
+            batch_arg=1)
     dev = resolve_device(device)
     anchors = torch.as_tensor(anchor_table(image_size), device=dev)
     conf = config.getfloat('conf_threshold', fallback=0.3)
     nms_thr = config.getfloat('nms_threshold', fallback=0.5)
     cands = config.getint('nms_candidates', fallback=512)
     max_det = config.getint('max_detections', fallback=100)
-    forward = _eval_forward(model, variables, image_size, config, dev)
+    approx = config.getboolean('approx_topk', fallback=False)
+    forward = _eval_forward(model, variables, image_size, config, dev,
+                            quant_pack)
 
     @torch.no_grad()
     def predict(variables, x, class_valid, pred_to_label):
@@ -146,7 +152,7 @@ def make_predict_fn(model, image_size: int, config, variables=None,
             torch.as_tensor(class_valid, device=dev),
             image_size=image_size, conf_threshold=conf,
             nms_threshold=nms_thr, num_candidates=cands,
-            max_detections=max_det)
+            max_detections=max_det, approx=approx)
         labels = detections_to_labels(
             dets, torch.as_tensor(pred_to_label, device=dev), image_size,
             include_scores=True)
@@ -169,7 +175,6 @@ def make_fused_teacher_fn(teacher_models: Dict[str, Any], image_size: int,
     the compact audio stretched first. With `mesh` (a tuple of devices;
     `device` is then not read) the batch is split over one replica per
     device and the rows come back on mesh[0]."""
-    _refuse_unported(config)
     if mesh is not None:
         return meshes.over_mesh(mesh, [
             make_fused_teacher_fn(teacher_models, image_size, config,
@@ -269,8 +274,18 @@ def evaluate(teacher_models: Dict[str, Tuple[Any, Any]],
     mesh = meshes.create_mesh(n_eval, available) if n_eval > 1 else None
 
     student_key = student_input_key(config)
+    quant_pack = None
+    if config.getboolean('quant_inference', fallback=False):
+        # int8 PTQ: calibrate on the first frames of the test set, as the
+        # student will see them (compact audio stretched first)
+        n_cal = min(len(test_set), 8)
+        calib = maybe_stretch_mel_axis(torch.as_tensor(np.stack(
+            [np.asarray(test_set[i][student_key]) for i in range(n_cal)]),
+            device=dev), image_size)
+        net = eval_module(s_module, s_vars, dev, compute_dtype_from(config))
+        quant_pack = build_quant_pack(net, calib, [calib], state_dict=s_vars)
     predict = make_predict_fn(s_module, image_size, config, variables=s_vars,
-                              mesh=mesh, device=dev)
+                              mesh=mesh, quant_pack=quant_pack, device=dev)
     testing_points = list(teacher_models.keys())
     if (config.getboolean('use_thermal', fallback=False)
             and config.getboolean('use_depth', fallback=False)

@@ -55,11 +55,14 @@ class EfficientDet(nn.Module):
     (3 input channels), thermal teacher (1), audio student (8).
     `features_from` picks the features the KD loss reads ('efficientnet':
     the five BiFPN maps; 'header': the heads' alignment feature);
-    `drop_connect_rate` is the backbone's stochastic depth in train mode."""
+    `drop_connect_rate` is the backbone's stochastic depth in train mode;
+    `s2d_stem` runs the backbone's stem as the space-to-depth rewrite (same
+    parameters; the fused predictor folds the standard stem either way, as
+    the JAX package's fused forward does)."""
 
     def __init__(self, num_classes: int = 20, compound_coef: int = 2,
                  in_channels: int = 8, features_from: str = 'efficientnet',
-                 drop_connect_rate: float = 0.2):
+                 drop_connect_rate: float = 0.2, s2d_stem: bool = False):
         super().__init__()
         if features_from not in ('efficientnet', 'header'):
             raise NotImplementedError(features_from)
@@ -71,7 +74,7 @@ class EfficientDet(nn.Module):
         fpn = FPN_NUM_FILTERS[cc]
         self.backbone_net = EfficientNetFeatures(BACKBONE_COEF[cc],
                                                  in_channels,
-                                                 drop_connect_rate)
+                                                 drop_connect_rate, s2d_stem)
         self.bifpn = BiFPN(fpn, FPN_CELL_REPEATS[cc],
                            backbone_feature_channels(BACKBONE_COEF[cc]),
                            attention=cc < 6)

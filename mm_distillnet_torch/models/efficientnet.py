@@ -12,6 +12,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .layers import Conv2dSame, batch_norm, drop_connect, swish
@@ -147,16 +148,50 @@ class MBConvBlock(nn.Module):
         return x
 
 
+class SpaceToDepthStem(nn.Module):
+    """The 3x3 stride-2 stem conv computed as a 2x2 stride-1 conv over a
+    2x2 space-to-depth rearrangement of the input (port of the JAX
+    package's `_SpaceToDepthStem`, models/efficientnet.py:155-200).
+
+    With TF-SAME on an even input (pad (0, 1)), y[i, j] = sum over di, dj
+    < 3 of w[di, dj] x[2i + di, 2j + dj]; writing 2i + di = 2(i + p) + a
+    puts tap (di, dj) at block offset (p, q) and in-block offset (a, b),
+    a 2x2 kernel over 4C channels, zero where 2p + a > 2. The parameter
+    keeps its key `.conv.weight` and its (O, I, 3, 3) shape, so a state
+    dict of the standard stem loads unchanged. The TPU's reason for it is
+    lane width; on a GPU it is the same math by another road."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, 2, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        if h % 2 or w % 2:
+            raise ValueError(f's2d stem needs even input dims, got {h}x{w}')
+        # channel (2a + b) * C + c holds x[2i + a, 2j + b, c]
+        xs = (x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+              .reshape(b, 4 * c, h // 2, w // 2))
+        k = self.conv.weight                        # (O, C, 3, 3)
+        k = F.pad(k, (0, 1, 0, 1))                  # taps 3 are zero
+        k = (k.reshape(k.shape[0], c, 2, 2, 2, 2)   # (O, C, p, a, q, b)
+             .permute(0, 3, 5, 1, 2, 4).reshape(k.shape[0], 4 * c, 2, 2))
+        return F.conv2d(F.pad(xs, (0, 1, 0, 1)), k.to(xs.dtype))
+
+
 class EfficientNet(nn.Module):
-    """Stem + MBConv blocks; forward returns the pyramid taps [P1..P5]."""
+    """Stem + MBConv blocks; forward returns the pyramid taps [P1..P5].
+    `s2d_stem` runs the stem as SpaceToDepthStem (same parameters)."""
 
     def __init__(self, compound_coef: int = 2, in_channels: int = 3,
-                 drop_connect_rate: float = 0.2):
+                 drop_connect_rate: float = 0.2, s2d_stem: bool = False):
         super().__init__()
         width, _, _, _ = EFFICIENTNET_PARAMS[compound_coef]
         self.block_args = expand_block_args(compound_coef)
         stem = round_filters(32, width)
-        self._conv_stem = Conv2dSame(in_channels, stem, 3, 2, bias=False)
+        self._conv_stem = (SpaceToDepthStem(in_channels, stem) if s2d_stem
+                           else Conv2dSame(in_channels, stem, 3, 2,
+                                           bias=False))
         self._bn0 = batch_norm(stem)
         n = len(self.block_args)
         self._blocks = nn.ModuleList(
@@ -186,11 +221,11 @@ class EfficientNetFeatures(nn.Module):
     sits under `.model` as in the reference's EfficientNet wrapper."""
 
     def __init__(self, compound_coef: int = 2, in_channels: int = 3,
-                 drop_connect_rate: float = 0.2):
+                 drop_connect_rate: float = 0.2, s2d_stem: bool = False):
         super().__init__()
         self.compound_coef = compound_coef
         self.model = EfficientNet(compound_coef, in_channels,
-                                  drop_connect_rate)
+                                  drop_connect_rate, s2d_stem)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None

@@ -198,6 +198,15 @@ def _fused_generator(model: EfficientDetGenerator,
     return forward
 
 
+def eval_module(model, state_dict: Mapping[str, torch.Tensor], device,
+                dtype: torch.dtype = torch.float32) -> torch.nn.Module:
+    """A frozen copy of `model` holding `state_dict`, on `device` in
+    `dtype`, in eval mode."""
+    net = copy.deepcopy(model)
+    net.load_state_dict(state_dict)
+    return net.to(resolve_device(device), dtype).eval().requires_grad_(False)
+
+
 def make_eval_forward(model,
                       state_dict: Mapping[str, torch.Tensor],
                       image_size: int, fused: bool,
@@ -212,9 +221,7 @@ def make_eval_forward(model,
     if fused:
         return make_fused_predictor(model, state_dict, image_size,
                                     dtype=dtype, device=device)
-    net = copy.deepcopy(model)
-    net.load_state_dict(state_dict)
-    net = net.to(resolve_device(device), dtype).eval().requires_grad_(False)
+    net = eval_module(model, state_dict, device, dtype)
 
     @torch.no_grad()
     def forward(x) -> DetectorOutput:

@@ -78,6 +78,24 @@ def anchor_index_tables(image_size: int, anchor_scale: float = 4.0,
             np.asarray(half_sizes, np.float32), n_per)
 
 
+_DEVICE_TABLES: dict = {}
+
+
+def _tables_on(image_size: int, anchor_scale: float, dev: torch.device):
+    """anchor_index_tables as tensors on `dev`, made once per device (a
+    copy from the host in every call could not be captured in a CUDA
+    graph); not kept while torch.export traces, where they are the
+    program's constants."""
+    key = (image_size, anchor_scale, dev)
+    tables = _DEVICE_TABLES.get(key)
+    if tables is None:
+        *arrays, n_per = anchor_index_tables(image_size, anchor_scale)
+        tables = (*(torch.as_tensor(a, device=dev) for a in arrays), n_per)
+        if not torch.compiler.is_exporting():
+            _DEVICE_TABLES[key] = tables
+    return tables
+
+
 def anchors_from_indices(idx: torch.Tensor, image_size: int,
                          anchor_scale: float = 4.0) -> torch.Tensor:
     """[y1, x1, y2, x2] anchors for flat anchor indices `idx` (any shape),
@@ -85,13 +103,8 @@ def anchors_from_indices(idx: torch.Tensor, image_size: int,
     arithmetic is the reference's, so results are bit-equal to
     mm_distillnet_tpu's anchors_from_indices (and within 1e-4 of the
     float64-built table)."""
-    starts, strides, widths, half_sizes, n_per = anchor_index_tables(
-        image_size, anchor_scale)
-    dev = idx.device
-    starts_t = torch.as_tensor(starts, device=dev)
-    strides_t = torch.as_tensor(strides, device=dev)
-    widths_t = torch.as_tensor(widths, device=dev)
-    hs = torch.as_tensor(half_sizes, device=dev)            # (L, 9, 2)
+    starts_t, strides_t, widths_t, hs, n_per = _tables_on(
+        image_size, anchor_scale, idx.device)                # hs (L, 9, 2)
 
     idx = idx.to(torch.int32)
     level = (idx[..., None] >= starts_t).sum(-1) - 1

@@ -3,7 +3,9 @@ ctypes).
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its own
 with nvcc for Hopper (`sm_90a`); each `csrc/<name>.cpp` (host code: the
-image decoder) with the host C++ compiler (`$CXX`, else `c++`). Both go
+image decoder) and the repo's `native/mmdt_native.cpp` (the metrics' host
+kernels, read in place) with the host C++ compiler (`$CXX`, else `c++`).
+All go
 into `build/mm_distillnet_torch/` at the root of the checkout, at first use
 (`load`) or all at once, in parallel (`build_all`). The library's file name
 carries a hash of the sources and flags, so an edited source is rebuilt and
@@ -25,7 +27,10 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
-BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'mm_distillnet_torch'
+ROOT = Path(__file__).resolve().parents[2]
+BUILD_DIR = ROOT / 'build' / 'mm_distillnet_torch'
+# host sources outside csrc/, by library name
+HOST_SOURCES = {'mmdt_native': ROOT / 'native' / 'mmdt_native.cpp'}
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 HOST_FLAGS = ['-std=c++17', '-O3', '-shared', '-fPIC',
@@ -39,10 +44,12 @@ build_logs: Dict[str, str] = {}
 
 def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob('*.cu')) + \
-        sorted(p.stem for p in CSRC.glob('*.cpp'))
+        sorted(p.stem for p in CSRC.glob('*.cpp')) + sorted(HOST_SOURCES)
 
 
 def _source(name: str) -> Path:
+    if name in HOST_SOURCES:
+        return HOST_SOURCES[name]
     cu = CSRC / f'{name}.cu'
     return cu if cu.exists() else CSRC / f'{name}.cpp'
 
@@ -102,8 +109,7 @@ def _finish(name: str, started) -> None:
     build_logs[name] = log
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'the build of csrc/{_source(name).name} '
-                           f'failed:\n{log}')
+        raise RuntimeError(f'the build of {_source(name)} failed:\n{log}')
     os.replace(tmp, out)
 
 

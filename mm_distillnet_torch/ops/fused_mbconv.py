@@ -34,9 +34,13 @@ The kernels read the weights in layouts made once at fold time
 wgmma reads them from shared memory, cut into the pieces one copy brings in. What
 bounds each kernel and why its design is so is noted in its CUDA source.
 
-Each wrapper runs its kernel for a CUDA tensor, with that tensor's card as
-the current device (the C side sets its shared-memory limits per device),
-and counts the launch in `launches`; for a CPU tensor it runs the plain version (`*_reference`),
+Each wrapper calls its kernel's torch.library custom op
+(`mm_distillnet::mbconv_expand_dw`, `::mbconv_se`, `::mbconv_project`), so
+the device of the tensors picks the implementation and torch.export can
+trace a forward through it. For a CUDA tensor the op runs the kernel, with
+that tensor's card as the current device (the C side sets its shared-memory
+limits per device), and counts the launch in `launches`; for a CPU tensor
+it runs the plain version (`*_reference`),
 which repeats the kernel's arithmetic and rounding points in torch:
 the expanded activation is rounded to bf16 before the taps, the depthwise
 accumulates in fp32 from the bias, the SE mean is taken over the fp32
@@ -606,12 +610,10 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def expand_dw(x: torch.Tensor, f: FoldedMBConv, args: BlockArgs
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel (a): x (B, H, W, Cin) bf16 -> (d (B, Ho, Wo, CeP) bf16,
-    per-tile sums (B, T, CeP) f32)."""
-    if x.device.type == 'cpu':
-        return expand_dw_reference(x, f, args)
+def _expand_dw_cuda(x: torch.Tensor, f: FoldedMBConv, args: BlockArgs
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel (a)'s launch: x (B, H, W, Cin) bf16 -> (d (B, Ho, Wo, CeP)
+    bf16, per-tile sums (B, T, CeP) f32)."""
     b, h, w, cin = x.shape
     k, s = args.kernel_size, args.stride
     ho, wo = output_hw(h, w, args)
@@ -663,12 +665,9 @@ def _check_clusters_fit(device_index: int, b: int, cep: int, cs: int,
             f'(cudaOccupancyMaxActiveClusters: {n})')
 
 
-def se_gate(sums: torch.Tensor, f: FoldedMBConv, hw: int,
-            plan: Optional[SePlan] = None) -> torch.Tensor:
-    """Kernel (b): per-tile sums (B, T, CeP) -> gate (B, CeP) f32. `plan`
-    defaults to `se_plan` of the shape."""
-    if sums.device.type == 'cpu':
-        return se_gate_reference(sums, f, hw)
+def _se_gate_cuda(sums: torch.Tensor, f: FoldedMBConv, hw: int,
+                  plan: Optional[SePlan]) -> torch.Tensor:
+    """Kernel (b)'s launch: per-tile sums (B, T, CeP) -> gate (B, CeP) f32."""
     b, t, cep = sums.shape
     cs = f.w_se1.shape[0]
     dev = sums.device
@@ -704,11 +703,9 @@ def se_gate(sums: torch.Tensor, f: FoldedMBConv, hw: int,
     return gate
 
 
-def project(d: torch.Tensor, gate: torch.Tensor, f: FoldedMBConv,
-            skip: Optional[torch.Tensor]) -> torch.Tensor:
-    """Kernel (c): bf16(d * gate) @ w_prj + b_prj (+ skip) -> bf16."""
-    if d.device.type == 'cpu':
-        return project_reference(d, gate, f, skip)
+def _project_cuda(d: torch.Tensor, gate: torch.Tensor, f: FoldedMBConv,
+                  skip: Optional[torch.Tensor]) -> torch.Tensor:
+    """Kernel (c)'s launch: bf16(d * gate) @ w_prj + b_prj (+ skip) -> bf16."""
     b, ho, wo, cep = d.shape
     co = f.w_prj.shape[1]
     dev = d.device
@@ -736,6 +733,130 @@ def project(d: torch.Tensor, gate: torch.Tensor, f: FoldedMBConv,
     _raise_on(err, 'mbconv_project')
     launches['mbconv_project'] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the kernels as torch.library custom ops (mm_distillnet::mbconv_*): a CPU
+# implementation (the plain version), a CUDA one (the kernel, counted in
+# `launches`) and a fake one (shapes and dtypes), so that torch.export and
+# torch.compile can trace a forward that runs them and the device of the
+# tensors picks the implementation
+# ---------------------------------------------------------------------------
+
+_ARGS_SCHEMA = ('int kernel_size, int stride, int input_filters, '
+                'int output_filters, int expand_ratio, float se_ratio, '
+                'bool id_skip')
+_LIB = torch.library.Library('mm_distillnet', 'DEF')
+_LIB.define('mbconv_expand_dw(Tensor x, Tensor? w_exp, Tensor? b_exp, '
+            'Tensor w_dw, Tensor b_dw, Tensor? wexp_pack, Tensor? dw_pack, '
+            f'{_ARGS_SCHEMA}) -> (Tensor, Tensor)')
+_LIB.define('mbconv_se(Tensor sums, Tensor w_se1, Tensor b_se1, '
+            'Tensor w_se2, Tensor b_se2, Tensor? se_pack, int hw, '
+            'int[] plan) -> Tensor')
+_LIB.define('mbconv_project(Tensor d, Tensor gate, Tensor w_prj, '
+            'Tensor b_prj, Tensor wprj_pack, Tensor? skip) -> Tensor')
+
+
+def _folded(**tensors) -> FoldedMBConv:
+    """A FoldedMBConv holding only the tensors an op was given."""
+    return FoldedMBConv(**{**{k: None for k in FoldedMBConv._fields},
+                           **tensors})
+
+
+def _args_tuple(args: BlockArgs) -> tuple:
+    return (args.kernel_size, args.stride, args.input_filters,
+            args.output_filters, args.expand_ratio, float(args.se_ratio),
+            bool(args.id_skip))
+
+
+def _block_args(k, s, cin, co, er, se_ratio, id_skip) -> BlockArgs:
+    return BlockArgs(k, 1, cin, co, er, s, se_ratio, id_skip)
+
+
+def _expand_dw_op(device_type: str):
+    def impl(x, w_exp, b_exp, w_dw, b_dw, wexp_pack, dw_pack, *block):
+        f = _folded(w_exp=w_exp, b_exp=b_exp, w_dw=w_dw, b_dw=b_dw,
+                    wexp_pack=wexp_pack, dw_pack=dw_pack)
+        run = expand_dw_reference if device_type == 'cpu' else _expand_dw_cuda
+        return run(x, f, _block_args(*block))
+    return impl
+
+
+def _se_op(device_type: str):
+    def impl(sums, w_se1, b_se1, w_se2, b_se2, se_pack, hw, plan):
+        f = _folded(w_se1=w_se1, b_se1=b_se1, w_se2=w_se2, b_se2=b_se2,
+                    se_pack=se_pack)
+        if device_type == 'cpu':
+            return se_gate_reference(sums, f, hw)
+        return _se_gate_cuda(sums, f, hw,
+                             SePlan(plan[0], bool(plan[1]), *plan[2:])
+                             if plan else None)
+    return impl
+
+
+def _project_op(device_type: str):
+    def impl(d, gate, w_prj, b_prj, wprj_pack, skip):
+        f = _folded(w_prj=w_prj, b_prj=b_prj, wprj_pack=wprj_pack)
+        run = project_reference if device_type == 'cpu' else _project_cuda
+        return run(d, gate, f, skip)
+    return impl
+
+
+for _device, _key in (('cpu', 'CPU'), ('cuda', 'CUDA')):
+    _LIB.impl('mbconv_expand_dw', _expand_dw_op(_device), _key)
+    _LIB.impl('mbconv_se', _se_op(_device), _key)
+    _LIB.impl('mbconv_project', _project_op(_device), _key)
+
+
+@torch.library.register_fake('mm_distillnet::mbconv_expand_dw')
+def _expand_dw_fake(x, w_exp, b_exp, w_dw, b_dw, wexp_pack, dw_pack, *block):
+    args = _block_args(*block)
+    b, h, w, _ = x.shape
+    ho, wo = output_hw(h, w, args)
+    cep = w_dw.shape[-1]
+    # the plain version sums each image at once; the kernel per tile
+    t = 1 if x.device.type == 'cpu' else num_tiles(
+        ho, wo, *tile_plan(args, b, ho, wo)[:2])
+    return (x.new_empty((b, ho, wo, cep), dtype=torch.bfloat16),
+            x.new_empty((b, t, cep), dtype=torch.float32))
+
+
+@torch.library.register_fake('mm_distillnet::mbconv_se')
+def _se_fake(sums, w_se1, b_se1, w_se2, b_se2, se_pack, hw, plan):
+    return sums.new_empty((sums.shape[0], sums.shape[2]),
+                          dtype=torch.float32)
+
+
+@torch.library.register_fake('mm_distillnet::mbconv_project')
+def _project_fake(d, gate, w_prj, b_prj, wprj_pack, skip):
+    return d.new_empty((*d.shape[:3], w_prj.shape[1]), dtype=torch.bfloat16)
+
+
+def expand_dw(x: torch.Tensor, f: FoldedMBConv, args: BlockArgs
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel (a): x (B, H, W, Cin) bf16 -> (d (B, Ho, Wo, CeP) bf16,
+    per-tile sums (B, T, CeP) f32); a CPU tensor runs the plain version
+    (T = 1)."""
+    return torch.ops.mm_distillnet.mbconv_expand_dw(
+        x, f.w_exp, f.b_exp, f.w_dw, f.b_dw, f.wexp_pack, f.dw_pack,
+        *_args_tuple(args))
+
+
+def se_gate(sums: torch.Tensor, f: FoldedMBConv, hw: int,
+            plan: Optional[SePlan] = None) -> torch.Tensor:
+    """Kernel (b): per-tile sums (B, T, CeP) -> gate (B, CeP) f32. `plan`
+    defaults to `se_plan` of the shape."""
+    return torch.ops.mm_distillnet.mbconv_se(
+        sums, f.w_se1, f.b_se1, f.w_se2, f.b_se2, f.se_pack, hw,
+        [] if plan is None else [plan.ranks, int(plan.split_tiles),
+                                 plan.per_rank, plan.threads])
+
+
+def project(d: torch.Tensor, gate: torch.Tensor, f: FoldedMBConv,
+            skip: Optional[torch.Tensor]) -> torch.Tensor:
+    """Kernel (c): bf16(d * gate) @ w_prj + b_prj (+ skip) -> bf16."""
+    return torch.ops.mm_distillnet.mbconv_project(
+        d, gate, f.w_prj, f.b_prj, f.wprj_pack, skip)
 
 
 def mbconv_fused(x: torch.Tensor, f: FoldedMBConv,

@@ -11,7 +11,10 @@ are computed from their indices.
 Candidate selection is exact: the packed keys, biased by 2^23 and bit-cast
 to float32 (order-preserving), go through a stable descending sort, which
 breaks ties toward the lower index as `jax.lax.top_k` does. The reference's
-`approx=True` (TPU-only `approx_max_k`) is not ported and raises.
+`approx=True` routes the same biased keys through `jax.lax.approx_max_k`,
+which is approximate on a TPU only: elsewhere it computes the exact top-k
+(its values and indices equal `lax.top_k`'s), so here `approx=True` takes
+the exact selection.
 """
 from __future__ import annotations
 
@@ -64,11 +67,9 @@ def postprocess_detections(classification: torch.Tensor,
     """classification (B, N, C) sigmoid scores; regression (B, N, 4);
     anchors (N, 4) [y1,x1,y2,x2] (kept for the reference's signature: the
     packed path computes candidate anchors from indices); class_valid (C,)
-    bool LUT."""
-    if approx:
-        raise NotImplementedError(
-            'approx=True wraps the TPU-only approx_max_k; the port selects '
-            'candidates exactly')
+    bool LUT. `approx` is the reference's switch to `approx_max_k`, exact
+    off the TPU: both values select the same candidates here."""
+    del approx
     classification = classification.float()
     regression = regression.float()
     n_cls = classification.shape[-1]

@@ -1,6 +1,8 @@
 """Evaluation metrics (port of mm_distillnet_tpu/utils/metrics.py;
-host-side numpy, not performance-critical). The reference's optional native
-route for `get_batch_statistics` is not ported: this is its numpy route.
+host-side numpy). `get_batch_statistics` assigns the true positives of an
+image with [x1, y1, x2, y2, score, label] rows through the native host
+kernel (utils/native.py); `get_batch_statistics_reference` is its numpy
+route, the plain version.
 
 Same semantics as the reference's YOLOv3-style metric stack
 (reference src/utils/utils.py:993-1280):
@@ -37,7 +39,21 @@ def bbox_iou_plus1(box: np.ndarray, boxes: np.ndarray) -> np.ndarray:
 
 def get_batch_statistics(outputs: Sequence, targets: Sequence,
                          iou_threshold: float) -> List:
-    """Returns per-image [true_positives, scores, pred_labels] triples."""
+    """Returns per-image [true_positives, scores, pred_labels] triples; the
+    TP assignment of prediction rows with scores runs natively."""
+    return _batch_statistics(outputs, targets, iou_threshold, True)
+
+
+def get_batch_statistics_reference(outputs: Sequence, targets: Sequence,
+                                   iou_threshold: float) -> List:
+    """`get_batch_statistics` in numpy only (the plain version)."""
+    return _batch_statistics(outputs, targets, iou_threshold, False)
+
+
+def _batch_statistics(outputs: Sequence, targets: Sequence,
+                      iou_threshold: float, use_native: bool) -> List:
+    from . import native
+
     batch_metrics = []
     for sample_i in range(len(outputs)):
         output = np.asarray(outputs[sample_i], dtype=np.float64)
@@ -45,6 +61,12 @@ def get_batch_statistics(outputs: Sequence, targets: Sequence,
             continue
         target = np.asarray(targets[sample_i], dtype=np.float64)
         if target.size == 0:
+            continue
+        if use_native and output.ndim == 2 and output.shape[1] >= 6:
+            tp = native.batch_statistics_tp(output, target[:, :5],
+                                            iou_threshold)
+            batch_metrics.append([tp.astype(np.float64), output[:, 4],
+                                  output[:, -1]])
             continue
         pred_boxes = output[:, :4]
         pred_scores = output[:, 4]

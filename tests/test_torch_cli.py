@@ -306,10 +306,20 @@ def test_datasets_and_just_plot(files):
     config['dataset'] = 'CarsAugmented'
     with pytest.raises(ValueError, match='Unsupported dataset'):
         factory.get_dataset(config, 'train')
-    with pytest.raises(NotImplementedError, match='item 3'):
-        cli_evaluate.main(['--config_file', CONFIG, '--device', 'cpu',
-                           '--just_plot', 'drive/1', '--overwrite',
-                           _overwrite(files, exp_name='plot')])
+    # --just_plot writes one frame's debug plots instead of evaluating
+    # (tests/test_torch_plotting.py holds the images to the JAX package's)
+    frame = factory.get_dataset(load_config(CONFIG, _overwrite(files)),
+                                'test').ids[0]
+    assert cli_evaluate.main(['--config_file', CONFIG, '--device', 'cpu',
+                              '--just_plot', frame, '--overwrite',
+                              _overwrite(files, exp_name='plot')]) is None
+    safe = frame.replace('/', '_')
+    names = sorted(os.listdir('plot'))
+    assert len([n for n in names if '.activation_' in n]) == 5
+    assert len([n for n in names if '.specshow_' in n]) == 8
+    for n in ('student', 'rgb', 'thermal', 'depth'):
+        assert f'{safe}.{n}.png' in names
+    assert not os.path.exists(os.path.join('plot', 'results.0.csv'))
 
 
 def test_clis_raise_without_a_card_unless_asked(files):

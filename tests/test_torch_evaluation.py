@@ -236,10 +236,29 @@ def test_evaluate_options(setup, tmp_path):
 @pytest.mark.parametrize('key,match', [('quant_inference', 'quant'),
                                        ('approx_topk', 'approx')])
 def test_unported_options_raise(setup, key, match):
-    _, _, module, sd = setup['nets']['audio']
+    """Both options are ported now and no longer raise. make_predict_fn
+    with either set gives the JAX function's rows under the same config:
+    `quant_inference` is read by evaluate(), which builds the pack
+    (tests/test_torch_quant.py), and `approx_topk` selects exactly off the
+    TPU, as the JAX package's approx_max_k does there."""
+    jmod, v, module, sd = setup['nets']['audio']
+    assert key.startswith(match)
     cfg = default_config(**{**SETTINGS, key: True})
-    with pytest.raises(NotImplementedError, match=match):
-        ev.make_predict_fn(module, SIZE, cfg, variables=sd, device='cpu')
+    jcfg = jax_default_config(**{**SETTINGS, key: True})
+    audio = setup['batch']['audio']
+    want, _ = jax_eval.make_predict_fn(jmod, SIZE, jcfg)(
+        to_jax(v), jnp.asarray(audio), jnp.asarray(setup['class_valid']),
+        jnp.asarray(setup['lut']))
+    rows, _ = ev.make_predict_fn(module, SIZE, cfg, variables=sd,
+                                 device='cpu')(sd, audio,
+                                               setup['class_valid'],
+                                               setup['lut'])
+    _same_rows(rows.numpy(), want)
+    plain, _ = ev.make_predict_fn(module, SIZE, setup['tcfg'], variables=sd,
+                                  device='cpu')(sd, audio,
+                                                setup['class_valid'],
+                                                setup['lut'])
+    assert torch.equal(rows, plain)
 
 
 def test_generator_teacher_and_multi_device_eval_raise(setup):

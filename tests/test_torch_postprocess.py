@@ -153,11 +153,29 @@ def test_postprocess_matches_reference(seed, conf, valid_ids):
 
 
 def test_postprocess_approx_raises():
+    """approx=True no longer raises: the JAX package's approx path
+    (jax.lax.approx_max_k over the biased keys) is exact off the TPU, so
+    the port's approx=True selects exactly, and both packages' approx=True
+    give the port's approx=False detections."""
     cls, reg = _pp_inputs(0)
-    with pytest.raises(NotImplementedError):
-        tp.postprocess_detections(
-            torch.from_numpy(cls), torch.from_numpy(reg), None,
-            torch.ones(20, dtype=torch.bool), image_size=SIZE, approx=True)
+    kw = dict(image_size=SIZE, conf_threshold=0.3, nms_threshold=0.5,
+              num_candidates=64, max_detections=16)
+    table = ta.anchor_table(SIZE)
+    cv = tp.class_validity_table(20, list(range(20)))
+    got = tp.postprocess_detections(
+        torch.from_numpy(cls), torch.from_numpy(reg), None,
+        torch.from_numpy(cv), approx=True, **kw)
+    exact = tp.postprocess_detections(
+        torch.from_numpy(cls), torch.from_numpy(reg), None,
+        torch.from_numpy(cv), **kw)
+    want = jp.postprocess_detections(jnp.asarray(cls), jnp.asarray(reg),
+                                     jnp.asarray(table), jnp.asarray(cv),
+                                     approx=True, **kw)
+    assert got.valid.any()
+    for g, e, w in zip(got, exact, want):
+        assert torch.equal(g, e)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_detections_to_labels_matches():
