@@ -149,21 +149,29 @@ Phases, each of which fails the run on any error:
      card measure the path, not multi-card speed;
   10. quant: the int8 PTQ path (quant.py) of the slice phase's seeded
      student at D2@768, batch 8. build_quant_pack on the batch through the
-     bf16 module tree; one recorded forward: every quantized conv's int32
-     accumulators from its route (csrc/int8_conv.cu `int8_conv2d`, or
-     torch._int_mm for the 1x1s) must equal the plain version's (an fp64
-     conv of the int8 values), the 1x1s also through the kernel, and each
-     call is timed (CUDA-graph replays) beside the plain version and its
-     bound. make_serving_fn(quant_pack=) serves three batches with every
-     count set to 0 just before: each route must have launched exactly
-     its calls per forward times 3, and no MBConv kernel. Against the
-     bf16 fused predictor on the same batch the outputs must correlate
-     above QUANT_CORR_FLOOR and at least QUANT_MATCH_FLOOR of its
-     detections be found at IoU 0.5 with the same class. Host ms, device
-     busy ms and launches of a serve call; then evaluate() with
-     quant_inference=True on a Freiburg tree (16 test frames, the shipped
-     config, teachers on the MBConv kernels: 69 launches of each per
-     batch, the int8 routes' calls per batch), frames/s;
+     bf16 module tree; one recorded forward: every 'int8_conv2d'-route
+     call runs the fused kernel (csrc/int8_conv.cu `quantized_conv2d`),
+     whose output must equal the unfused torch sequence's
+     (int8_conv.quantized_conv2d_reference) bit for bit, and on its
+     quantized input `int8_conv2d`'s int32 accumulators must equal the
+     plain version's (an fp64 conv of the int8 values); every 1x1 call's
+     torch._int_mm accumulators too, and the same through int8_conv2d.
+     Each call is timed (CUDA-graph replays) beside its plain version and
+     its bound, per route and per class (dw3s1, dw5s1, dw3s2, dw5s2,
+     stem), with the fp32 cuDNN convolution of the same int8 values
+     (channels_last, TF32 off; timed only) and the calls on which it is
+     exact. make_serving_fn(quant_pack=) serves three batches with every
+     count set to 0 just before: quantized_conv2d and _int_mm must have
+     launched exactly their calls per forward times 3, int8_conv2d and
+     the MBConv kernels never; the inputs the fused wrapper had to copy
+     into NHWC are counted. Against the bf16 fused predictor on the same
+     batch the outputs must correlate above QUANT_CORR_FLOOR and at least
+     QUANT_MATCH_FLOOR of its detections be found at IoU 0.5 with the same
+     class. Host ms, device busy ms and launches of a serve call; then
+     evaluate() with quant_inference=True on a Freiburg tree (16 test
+     frames, the shipped config, teachers on the MBConv kernels: 69
+     launches of each per batch, the int8 routes' calls per batch),
+     frames/s;
   11. export: the slice phase's student served by make_serving_fn (bf16,
      the MBConv kernels) is exported with export_predictor on the card
      (seconds, file size) and replayed by load_predictor in a fresh
@@ -176,9 +184,10 @@ Phases, each of which fails the run on any error:
      the call) beside graph_ms and the host clock;
   12. report: one JSON line of kernel results (launches summed over the
      serving, teacher, train, cli, data, dist, quant and export phases;
-     int8_conv2d's over the quant phase, its ms, plain ms and bound summed
-     over one forward's calls), then as the last line {"ok": true,
-     "device": {...}}.
+     int8_conv2d's and quantized_conv2d's over the quant phase's serving
+     and evaluate(), their ms, plain ms and bound summed over one
+     forward's calls, int8_conv2d's library_ms the fp32 cuDNN yardstick),
+     then as the last line {"ok": true, "device": {...}}.
 
 Per-block numbers go to chiprun_out/chip_smoke.json. Without a CUDA device
 the script exits non-zero and prints no result.
@@ -209,6 +218,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from mm_distillnet_torch.config import (compute_dtype_from, config_from_dict,
                                         default_config, load_config,
@@ -2273,51 +2283,138 @@ QUANT_MATCH_FLOOR = 0.3
 QUANT_CORR_FLOOR = 0.95
 
 
+INT8_ROUTES = ('int8_conv2d', 'int_mm', 'quantized_conv2d')
+
+
 @contextlib.contextmanager
 def recorded_int8_calls(calls: list):
-    """Every quantized conv's int32 accumulation, with its operands, its
-    route (int8_conv.route, as conv_int32 decides it) and its result,
-    appended to `calls` while the context lasts."""
-    saved = int8_conv.conv_int32
+    """Every quantized conv of a forward, with its operands and result,
+    appended to `calls` while the context lasts: the s8 GEMM calls of the
+    'int_mm' route (int8_conv.int_mm, route 'int_mm') and the fused calls
+    of quantized_conv2d (route 'quantized_conv2d', which takes every
+    'int8_conv2d'-route call)."""
+    saved_mm, saved_fused = int8_conv.int_mm, int8_conv.quantized_conv2d
 
-    def record(qx, qw, stride, padding, groups):
-        out = saved(qx, qw, stride, padding, groups)
-        calls.append((qx, qw, tuple(stride), padding, groups,
-                      int8_conv.route(qx.shape, qw.shape, stride, padding,
-                                      groups), out))
+    def record_mm(qx, qw):
+        out = saved_mm(qx, qw)
+        calls.append(dict(route='int_mm', qx=qx, qw=qw, stride=(1, 1),
+                          padding=((0, 0), (0, 0)), groups=1, out=out))
         return out
 
-    int8_conv.conv_int32 = record
+    def record_fused(x, qw, wscale, ascale, bias, stride, padding, groups,
+                     compute_dtype=torch.bfloat16):
+        out = saved_fused(x, qw, wscale, ascale, bias, stride, padding,
+                          groups, compute_dtype)
+        calls.append(dict(route='quantized_conv2d', x=x, qw=qw,
+                          wscale=wscale, ascale=ascale, bias=bias,
+                          stride=tuple(stride), padding=padding,
+                          groups=groups, compute_dtype=compute_dtype,
+                          out=out))
+        return out
+
+    int8_conv.int_mm = record_mm
+    int8_conv.quantized_conv2d = record_fused
     try:
         yield
     finally:
-        int8_conv.conv_int32 = saved
+        int8_conv.int_mm = saved_mm
+        int8_conv.quantized_conv2d = saved_fused
+
+
+def library_conv(qx: torch.Tensor, qw: torch.Tensor, stride, padding,
+                 groups: int) -> torch.Tensor:
+    """The yardstick of int8_conv2d, timed only (the port never calls it):
+    one fp32 cuDNN convolution of the int8 values, channels_last, TF32 off
+    (main() turns it off)."""
+    (pt, pb), (pl, pr) = padding
+    x = qx.permute(0, 3, 1, 2).float()
+    if (pt, pb, pl, pr) != (0, 0, 0, 0):
+        x = F.pad(x, (pl, pr, pt, pb))
+    w = qw.float().contiguous(memory_format=torch.channels_last)
+    return F.conv2d(x, w, stride=stride, groups=groups)
+
+
+def _equal_or_fail(name: str, call: dict, got, want) -> int:
+    """The largest |got - want|; raises unless the two are equal."""
+    e = float((got.double() - want.double()).abs().max().item())
+    if not torch.equal(got, want):
+        shape = tuple(call['qw'].shape)
+        raise AssertionError(f'{name} {shape} stride {call["stride"]}: '
+                             f'differs from its plain version by {e}')
+    return e
 
 
 def check_int8_calls(calls: list) -> dict:
-    """Each call's int32 accumulators against the plain version (exact),
-    the 1x1 GEMM calls also through the kernel; per route the summed
-    device ms (CUDA-graph replays), plain ms, bound and launches of one
-    forward."""
-    totals = {r: {'calls': 0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
-                  'bound_bytes_ms': 0.0, 'max_abs_err': 0}
-              for r in ('int8_conv2d', 'int_mm')}
+    """Each recorded call against the plain versions, bit for bit: the
+    int32 accumulators of its route (int8_conv2d and the s8 GEMM against
+    the fp64 conv; a GEMM call's also through int8_conv2d); a fused call's
+    output against the unfused torch sequence, and int8_conv2d on its
+    quantized input. Per route and, for the fused calls, per class: the
+    summed device ms (CUDA-graph replays), plain ms, bounds and calls of
+    one forward; the fp32 cuDNN yardstick's ms and the calls on which it
+    is exact."""
+    keys = {'calls': 0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
+            'bound_bytes_ms': 0.0, 'max_abs_err': 0.0}
+    totals = {r: dict(keys) for r in INT8_ROUTES}
+    totals['int8_conv2d'].update(library_ms=0.0, library_exact=0)
+    classes = {}
     shapes = []
-    for qx, qw, stride, padding, groups, launch, out in calls:
+
+    def add(route, ms, plain, bound, by, err, cls=None):
+        for t in (totals[route],) + ((classes.setdefault(cls, {}).setdefault(
+                route, dict(keys)),) if cls else ()):
+            t['calls'] += 1
+            t['ms'] += ms
+            t['plain_ms'] += plain
+            t['bound_ms'] += bound
+            t['bound_bytes_ms'] += bound if by == 'bytes' else 0.0
+            t['max_abs_err'] = max(t['max_abs_err'], err)
+
+    for c in calls:
+        stride, padding, groups, qw = (c['stride'], c['padding'],
+                                       c['groups'], c['qw'])
+        if c['route'] == 'quantized_conv2d':
+            x = c['x']
+            fused = (x, qw, c['wscale'], c['ascale'], c['bias'], stride,
+                     padding, groups, c['compute_dtype'])
+            want = int8_conv.quantized_conv2d_reference(*fused)
+            err = _equal_or_fail('quantized_conv2d', c, c['out'], want)
+            _equal_or_fail('quantized_conv2d', c,
+                           int8_conv.quantized_conv2d(*fused), want)
+            qx = torch.clamp(torch.round(x.float() / c['ascale']), -127,
+                             127).to(torch.int8)
+            cls = int8_conv.call_class(tuple(qx.shape), tuple(qw.shape),
+                                       stride, padding, groups)
+            bound, by = int8_conv.bound_ms(tuple(x.shape), tuple(qw.shape),
+                                           tuple(want.shape),
+                                           x.element_size(),
+                                           want.element_size())
+            ms = graph_ms(lambda: int8_conv.quantized_conv2d(*fused), 5, 2)
+            plain = graph_ms(
+                lambda: int8_conv.quantized_conv2d_reference(*fused), 5, 2)
+            add('quantized_conv2d', ms, plain, bound, by, err, cls)
+            shapes.append({'route': 'quantized_conv2d', 'class': cls,
+                           'x': list(x.shape), 'dtype': str(x.dtype),
+                           'contiguous': x.is_contiguous(),
+                           'w': list(qw.shape), 'stride': list(stride),
+                           'groups': groups, 'ms': ms, 'plain_ms': plain,
+                           'bound_ms': bound, 'bound_by': by})
+        else:
+            qx = c['qx']
+            cls = None
+        # the int32 accumulators: the route's own (a GEMM call's also
+        # through int8_conv2d), against the fp64 conv
         want = int8_conv.int8_conv2d_reference(qx, qw, stride, padding,
                                                groups)
-        got = {launch: out}
-        if launch == 'int_mm':
-            got['int8_conv2d'] = int8_conv.int8_conv2d(qx, qw, stride,
-                                                       padding, groups)
+        got = {'int8_conv2d': int8_conv.int8_conv2d(qx, qw, stride, padding,
+                                                    groups)}
+        if c['route'] == 'int_mm':
+            got['int_mm'] = c['out']
         for r, g in got.items():
-            e = int((g.long() - want.long()).abs().max().item())
-            totals[r]['max_abs_err'] = max(totals[r]['max_abs_err'], e)
-            if not torch.equal(g, want):
-                raise AssertionError(f'{r} {tuple(qx.shape)} x '
-                                     f'{tuple(qw.shape)}: int32 accumulators'
-                                     ' differ from the plain version')
-        if launch == 'int_mm':
+            totals[r]['max_abs_err'] = max(totals[r]['max_abs_err'],
+                                           _equal_or_fail(r, c, g, want))
+        timed = 'int_mm' if c['route'] == 'int_mm' else 'int8_conv2d'
+        if timed == 'int_mm':
             ms = graph_ms(lambda: int8_conv.int_mm(qx, qw), 5, 2)
         else:
             ms = graph_ms(lambda: int8_conv.int8_conv2d(
@@ -2325,19 +2422,26 @@ def check_int8_calls(calls: list) -> dict:
         plain = time_ms(lambda: int8_conv.int8_conv2d_reference(
             qx, qw, stride, padding, groups), 2, 1)
         bound, by = int8_conv.bound_ms(tuple(qx.shape), tuple(qw.shape),
-                                       tuple(out.shape))
-        t = totals[launch]
-        t['calls'] += 1
-        t['ms'] += ms
-        t['plain_ms'] += plain
-        t['bound_ms'] += bound
-        if by == 'bytes':
-            t['bound_bytes_ms'] += bound
-        shapes.append({'route': launch, 'x': list(qx.shape),
-                       'w': list(qw.shape), 'stride': list(stride),
-                       'groups': groups, 'ms': ms, 'plain_ms': plain,
-                       'bound_ms': bound, 'bound_by': by})
-    return {'totals': totals, 'shapes': shapes}
+                                       tuple(want.shape))
+        add(timed, ms, plain, bound, by, 0.0, cls)
+        row = {'route': timed, 'class': cls, 'x': list(qx.shape),
+               'w': list(qw.shape), 'stride': list(stride),
+               'groups': groups, 'ms': ms, 'plain_ms': plain,
+               'bound_ms': bound, 'bound_by': by}
+        if timed == 'int8_conv2d':
+            lib = library_conv(qx, qw, stride, padding, groups)
+            exact = bool(torch.equal(lib, lib.round()) and torch.equal(
+                lib.round().to(torch.int32).permute(0, 2, 3, 1), want))
+            lib_ms = graph_ms(lambda: library_conv(qx, qw, stride, padding,
+                                                   groups), 5, 2)
+            totals['int8_conv2d']['library_ms'] += lib_ms
+            totals['int8_conv2d']['library_exact'] += exact
+            lc = classes[cls].setdefault('library', {'ms': 0.0, 'exact': 0})
+            lc['ms'] += lib_ms
+            lc['exact'] += exact
+            row.update(library_ms=lib_ms, library_exact=exact)
+        shapes.append(row)
+    return {'totals': totals, 'classes': classes, 'shapes': shapes}
 
 
 def expect_int8(what: str, per_route: dict) -> dict:
@@ -2376,17 +2480,29 @@ def quant_phase(batch: int, seed: int, device, card: str):
     with recorded_int8_calls(calls):
         quant.quantized_apply(net, pack, x)
     torch.cuda.synchronize()
-    per_forward = {r: sum(c[5] == r for c in calls)
-                   for r in ('int8_conv2d', 'int_mm')}
+    per_forward = {r: sum(c['route'] == r for c in calls)
+                   for r in INT8_ROUTES}
+    # int8_conv2d is recorded 0 times: a launch of it fails here
     expect_int8('the recorded forward', per_forward)
+    fused_inputs = {'calls': per_forward['quantized_conv2d'],
+                    'not NHWC in memory': sum(
+                        not c['x'].is_contiguous() for c in calls
+                        if c['route'] == 'quantized_conv2d'),
+                    'dtypes': sorted({str(c['x'].dtype) for c in calls
+                                      if c['route'] == 'quantized_conv2d'})}
     checked = check_int8_calls(calls)
     del calls
     sections['pack and routes'] = time.perf_counter() - t0
     print(f'{card} | int8 pack of D2@768: {len(pack.qkernels)} convs '
           f'built in {pack_s:.2f} s; one '
-          f'forward: {json.dumps(per_forward)} calls, every int32 '
-          'accumulator equal to the plain version\'s; per route: '
-          + json.dumps(checked['totals']), flush=True)
+          f'forward: {json.dumps(per_forward)} calls, every fused output '
+          'equal to the unfused sequence\'s and every int32 accumulator '
+          'equal to the plain version\'s; fused inputs: '
+          + json.dumps(fused_inputs), flush=True)
+    for r, t in checked['totals'].items():
+        print(f'{card} | {r}, one forward: ' + json.dumps(t), flush=True)
+    for cls, t in sorted(checked['classes'].items()):
+        print(f'{card} | class {cls}: ' + json.dumps(t), flush=True)
 
     # (3) make_serving_fn(quant_pack=): the main path, counts 0 just
     # before and read just after
@@ -2400,6 +2516,7 @@ def quant_phase(batch: int, seed: int, device, card: str):
     torch.cuda.synchronize()
     counts = expect_int8('quantized serving',
                          {r: 3 * n for r, n in per_forward.items()})
+    copies = dict(int8_conv.layout_copies)
     expect_launches('quantized serving (no MBConv kernel)', 0)
     if not (torch.isfinite(first.boxes).all() and np.isfinite(
             again.scores).all()):
@@ -2436,6 +2553,7 @@ def quant_phase(batch: int, seed: int, device, card: str):
         if prof['measured']:
             timing[part]['busy_share'] = prof['busy_ms'] / \
                 timing[f'{part}_ms']
+    timing['layout_copies_3_calls'] = copies
     print(f'{card} | quantized serving D2@768 batch {batch}: '
           + json.dumps(timing), flush=True)
     sections['serving'] = time.perf_counter() - t0
@@ -2496,7 +2614,8 @@ def quant_phase(batch: int, seed: int, device, card: str):
             raise AssertionError(f'int8 {f} correlation {agree[f]} to the '
                                  f'bf16 predictor <= {QUANT_CORR_FLOOR}')
     return {'counts': counts, 'pack_s': pack_s, 'convs': len(pack.qkernels),
-            'per_forward': per_forward, 'int8': checked,
+            'per_forward': per_forward, 'fused_inputs': fused_inputs,
+            'int8': checked,
             'vs_bf16': {'corr': agree, 'matched': matched,
                         'share_iou0.5': share},
             'timing': timing,
@@ -2692,17 +2811,20 @@ def main(argv=None) -> int:
             'bound_by': ('bytes' if t['bound_bytes_ms'] * 2 >= t['bound_ms']
                          else 'operations'),
             'library_ms': None})
-    t = results['quant']['int8']['totals']['int8_conv2d']
-    kernels.append({
-        'name': 'int8_conv2d', 'route': 'cuda',
-        'source': 'mm_distillnet_torch/csrc/int8_conv.cu',
-        'replaces': INT8_REPLACES,
-        'launches': results['quant']['counts']['int8_conv2d'],
-        'max_abs_err': t['max_abs_err'], 'ms': t['ms'],
-        'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
-        'bound_by': ('bytes' if t['bound_bytes_ms'] * 2 >= t['bound_ms']
-                     else 'operations'),
-        'library_ms': None})
+    int8_totals = results['quant']['int8']['totals']
+    for name, lib in (('int8_conv2d', 'library_ms'),
+                      ('quantized_conv2d', None)):
+        t = int8_totals[name]
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': 'mm_distillnet_torch/csrc/int8_conv.cu',
+            'replaces': INT8_REPLACES,
+            'launches': results['quant']['counts'][name],
+            'max_abs_err': t['max_abs_err'], 'ms': t['ms'],
+            'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+            'bound_by': ('bytes' if t['bound_bytes_ms'] * 2 >= t['bound_ms']
+                         else 'operations'),
+            'library_ms': t[lib] if lib else None})
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps({
         'card': card, 'kind': kind, 'torch': torch.__version__,

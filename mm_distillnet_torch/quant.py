@@ -13,8 +13,9 @@ after it. The module tree and its weights are not modified.
   each conv's input over calibration batches, per-output-channel weight
   scales (absmax / 127), both as the JAX package computes them.
 - The int8 convolution runs by route (ops/int8_conv.py): 1x1 stride-1
-  ungrouped convs through the s8 GEMM, all others through the CUDA kernel
-  `int8_conv2d`; on the CPU, the exact plain version. The route is
+  ungrouped convs through the s8 GEMM between the torch prologue and
+  epilogue below, all others through the CUDA kernel `quantized_conv2d`,
+  which fuses them; on the CPU, the exact plain version. The route is
   decided by the shape of each call (`int8_conv.route`): a conv's row
   count, and so whether the GEMM takes it, depends on the batch.
 - Prologue `clamp(round_half_even(x / sx), -127, 127)`, epilogue
@@ -222,16 +223,13 @@ def quantized_conv(conv: nn.Conv2d, x: torch.Tensor, qkernel: torch.Tensor,
                    compute_dtype: torch.dtype = torch.bfloat16
                    ) -> torch.Tensor:
     """One conv of the module tree as int8 x int8 -> int32: x (B, C, H, W)
-    -> (B, O, Ho, Wo) in x's dtype (NHWC in memory)."""
-    qx = torch.clamp(torch.round(x.float() / ascale), -127, 127).to(
-        torch.int8)
-    acc = int8_conv.conv_int32(qx.permute(0, 2, 3, 1), qkernel,
-                               tuple(conv.stride), _padding(conv),
-                               conv.groups)
-    y = acc.float() * (ascale * wscale)
-    if conv.bias is not None:
-        y = y + conv.bias.float()
-    return y.to(compute_dtype).to(x.dtype).permute(0, 3, 1, 2)
+    -> (B, O, Ho, Wo) in x's dtype (NHWC in memory), by route
+    (int8_conv.quantized_conv: the fused kernel on the card, or the unfused
+    sequence)."""
+    y = int8_conv.quantized_conv(x.permute(0, 2, 3, 1), qkernel, wscale,
+                                 ascale, conv.bias, tuple(conv.stride),
+                                 _padding(conv), conv.groups, compute_dtype)
+    return y.permute(0, 3, 1, 2)
 
 
 @torch.no_grad()
