@@ -150,28 +150,32 @@ Phases, each of which fails the run on any error:
   10. quant: the int8 PTQ path (quant.py) of the slice phase's seeded
      student at D2@768, batch 8. build_quant_pack on the batch through the
      bf16 module tree; one recorded forward: every 'int8_conv2d'-route
-     call runs the fused kernel (csrc/int8_conv.cu `quantized_conv2d`),
-     whose output must equal the unfused torch sequence's
-     (int8_conv.quantized_conv2d_reference) bit for bit, and on its
-     quantized input `int8_conv2d`'s int32 accumulators must equal the
-     plain version's (an fp64 conv of the int8 values); every 1x1 call's
-     torch._int_mm accumulators too, and the same through int8_conv2d.
-     Each call is timed (CUDA-graph replays) beside its plain version and
-     its bound, per route and per class (dw3s1, dw5s1, dw3s2, dw5s2,
-     stem), with the fp32 cuDNN convolution of the same int8 values
-     (channels_last, TF32 off; timed only) and the calls on which it is
-     exact. make_serving_fn(quant_pack=) serves three batches with every
-     count set to 0 just before: quantized_conv2d and _int_mm must have
-     launched exactly their calls per forward times 3, int8_conv2d and
-     the MBConv kernels never; the inputs the fused wrapper had to copy
-     into NHWC are counted. Against the bf16 fused predictor on the same
-     batch the outputs must correlate above QUANT_CORR_FLOOR and at least
-     QUANT_MATCH_FLOOR of its detections be found at IoU 0.5 with the same
-     class. Host ms, device busy ms and launches of a serve call; then
-     evaluate() with quant_inference=True on a Freiburg tree (16 test
-     frames, the shipped config, teachers on the MBConv kernels: 69
-     launches of each per batch, the int8 routes' calls per batch),
-     frames/s;
+     call runs the fused kernel (csrc/int8_conv.cu `quantized_conv2d`) and
+     every 1x1 ('int_mm'-route) call the fused s8 GEMM (csrc/int8_gemm.cuh
+     `quantized_conv1x1`): INT8_PER_FORWARD calls, torch._int_mm none.
+     Each fused output must equal the unfused torch sequence's
+     (int8_conv.quantized_conv2d_reference, torch._int_mm for the 1x1
+     sums) bit for bit; on each call's quantized input the int32
+     accumulators of `int8_conv2d` and, on the 1x1s, of torch._int_mm must
+     equal the plain version's (an fp64 conv of the int8 values). Each
+     call is timed (CUDA-graph replays) beside its plain version and its
+     bound, per kernel and per class (dw3s1, dw5s1, dw3s2, dw5s2, stem;
+     pw384 ... pw6 for the 1x1s by map size), with the fp32 cuDNN
+     convolution of the same int8 values (channels_last, TF32 off; timed
+     only) and the calls on which it is exact, and torch._int_mm as the
+     1x1s' library
+     yardstick. make_serving_fn(quant_pack=) serves three batches with
+     every count set to 0 just before: both fused kernels must have
+     launched exactly their calls per forward times 3, int8_conv2d,
+     torch._int_mm and the MBConv kernels never; the inputs the fused
+     wrappers had to copy into NHWC are counted. Against the bf16 fused
+     predictor on the same batch the outputs must correlate above
+     QUANT_CORR_FLOOR and at least QUANT_MATCH_FLOOR of its detections be
+     found at IoU 0.5 with the same class. Host ms, device busy ms and
+     launches of a serve call; then evaluate() with quant_inference=True
+     on a Freiburg tree (16 test frames, the shipped config, teachers on
+     the MBConv kernels: 69 launches of each per batch, the fused
+     kernels' calls per batch), frames/s;
   11. export: the slice phase's student served by make_serving_fn (bf16,
      the MBConv kernels) is exported with export_predictor on the card
      (seconds, file size) and replayed by load_predictor in a fresh
@@ -184,9 +188,10 @@ Phases, each of which fails the run on any error:
      the call) beside graph_ms and the host clock;
   12. report: one JSON line of kernel results (launches summed over the
      serving, teacher, train, cli, data, dist, quant and export phases;
-     int8_conv2d's and quantized_conv2d's over the quant phase's serving
-     and evaluate(), their ms, plain ms and bound summed over one
-     forward's calls, int8_conv2d's library_ms the fp32 cuDNN yardstick),
+     int8_conv2d's, quantized_conv2d's and quantized_conv1x1's over the
+     quant phase's serving and evaluate(), their ms, plain ms and bound
+     summed over one forward's calls, int8_conv2d's library_ms the fp32
+     cuDNN yardstick, quantized_conv1x1's torch._int_mm's),
      then as the last line {"ok": true, "device": {...}}.
 
 Per-block numbers go to chiprun_out/chip_smoke.json. Without a CUDA device
@@ -253,7 +258,7 @@ from mm_distillnet_torch.cli import train as cli_train
 from mm_distillnet_torch.train import checkpoint, trainer
 from mm_distillnet_torch.train.optim import apply_gradients, build_scheduler
 from mm_distillnet_torch import quant
-from mm_distillnet_torch.ops import int8_conv
+from mm_distillnet_torch.ops import int8_conv, int8_gemm
 from mm_distillnet_torch.utils import profiling
 from mm_distillnet_torch.utils.profiling import graph_ms
 
@@ -269,6 +274,9 @@ REPLACES = 'mm_distillnet_tpu/ops/pallas_mbconv.py:137'
 # the int8 conv has no Pallas kernel to replace: the JAX package's s8 x s8
 # -> s32 lax.conv_general_dilated
 INT8_REPLACES = 'mm_distillnet_tpu/quant.py:209'
+INT8_SOURCES = {'int8_conv2d': 'mm_distillnet_torch/csrc/int8_conv.cu',
+                'quantized_conv2d': 'mm_distillnet_torch/csrc/int8_conv.cu',
+                'quantized_conv1x1': 'mm_distillnet_torch/csrc/int8_gemm.cuh'}
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / 'chiprun_out'
 RECIPE = ROOT / 'configs' / 'mm-distillnet.cfg'
@@ -2283,17 +2291,24 @@ QUANT_MATCH_FLOOR = 0.3
 QUANT_CORR_FLOOR = 0.95
 
 
-INT8_ROUTES = ('int8_conv2d', 'int_mm', 'quantized_conv2d')
+INT8_ROUTES = ('int8_conv2d', 'int_mm', 'quantized_conv2d',
+               'quantized_conv1x1')
+# the calls of one D2@768 forward: every conv through a fused kernel
+INT8_PER_FORWARD = {'int8_conv2d': 0, 'int_mm': 0, 'quantized_conv2d': 104,
+                    'quantized_conv1x1': 120}
+FUSED = ('quantized_conv2d', 'quantized_conv1x1')
 
 
 @contextlib.contextmanager
 def recorded_int8_calls(calls: list):
     """Every quantized conv of a forward, with its operands and result,
-    appended to `calls` while the context lasts: the s8 GEMM calls of the
-    'int_mm' route (int8_conv.int_mm, route 'int_mm') and the fused calls
-    of quantized_conv2d (route 'quantized_conv2d', which takes every
-    'int8_conv2d'-route call)."""
+    appended to `calls` while the context lasts: the fused calls of
+    quantized_conv2d (route 'quantized_conv2d', which takes every
+    'int8_conv2d'-route call) and of quantized_conv1x1 (every 'int_mm'-route
+    call), and any call of the s8 GEMM int8_conv.int_mm (route 'int_mm';
+    a forward makes none)."""
     saved_mm, saved_fused = int8_conv.int_mm, int8_conv.quantized_conv2d
+    saved_1x1 = int8_gemm.quantized_conv1x1
 
     def record_mm(qx, qw):
         out = saved_mm(qx, qw)
@@ -2312,13 +2327,23 @@ def recorded_int8_calls(calls: list):
                           out=out))
         return out
 
+    def record_1x1(x, qw, wscale, ascale, bias, compute_dtype=torch.bfloat16):
+        out = saved_1x1(x, qw, wscale, ascale, bias, compute_dtype)
+        calls.append(dict(route='quantized_conv1x1', x=x, qw=qw,
+                          wscale=wscale, ascale=ascale, bias=bias,
+                          stride=(1, 1), padding=((0, 0), (0, 0)), groups=1,
+                          compute_dtype=compute_dtype, out=out))
+        return out
+
     int8_conv.int_mm = record_mm
     int8_conv.quantized_conv2d = record_fused
+    int8_gemm.quantized_conv1x1 = record_1x1
     try:
         yield
     finally:
         int8_conv.int_mm = saved_mm
         int8_conv.quantized_conv2d = saved_fused
+        int8_gemm.quantized_conv1x1 = saved_1x1
 
 
 def library_conv(qx: torch.Tensor, qw: torch.Tensor, stride, padding,
@@ -2344,19 +2369,31 @@ def _equal_or_fail(name: str, call: dict, got, want) -> int:
     return e
 
 
+def fused_class(call: dict) -> str:
+    """A fused call's class: quantized_conv2d's by its plan's path
+    (int8_conv.call_class), a 1x1's 'pw{H}' by its map size."""
+    if call['route'] == 'quantized_conv1x1':
+        return f'pw{call["x"].shape[1]}'
+    return int8_conv.call_class(tuple(call['x'].shape),
+                                tuple(call['qw'].shape), call['stride'],
+                                call['padding'], call['groups'])
+
+
 def check_int8_calls(calls: list) -> dict:
-    """Each recorded call against the plain versions, bit for bit: the
-    int32 accumulators of its route (int8_conv2d and the s8 GEMM against
-    the fp64 conv; a GEMM call's also through int8_conv2d); a fused call's
-    output against the unfused torch sequence, and int8_conv2d on its
-    quantized input. Per route and, for the fused calls, per class: the
-    summed device ms (CUDA-graph replays), plain ms, bounds and calls of
-    one forward; the fp32 cuDNN yardstick's ms and the calls on which it
-    is exact."""
+    """Each recorded call against the plain versions, bit for bit: a fused
+    call's output against the unfused torch sequence
+    (quantized_conv2d_reference, whose 1x1 sums are torch._int_mm's), then
+    on its quantized input the int32 accumulators of int8_conv2d (and, on
+    a 1x1, of the s8 GEMM int_mm) against the fp64 conv. Per kernel and,
+    for the fused calls, per class: the summed device ms (CUDA-graph
+    replays), plain ms, bounds and calls of one forward; the 1x1s' library
+    yardstick (int_mm's ms); the fp32 cuDNN yardstick's ms and the calls on
+    which it is exact."""
     keys = {'calls': 0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
             'bound_bytes_ms': 0.0, 'max_abs_err': 0.0}
     totals = {r: dict(keys) for r in INT8_ROUTES}
     totals['int8_conv2d'].update(library_ms=0.0, library_exact=0)
+    totals['quantized_conv1x1'].update(library_ms=0.0)
     classes = {}
     shapes = []
 
@@ -2373,47 +2410,53 @@ def check_int8_calls(calls: list) -> dict:
     for c in calls:
         stride, padding, groups, qw = (c['stride'], c['padding'],
                                        c['groups'], c['qw'])
-        if c['route'] == 'quantized_conv2d':
+        cls, row = None, None
+        if c['route'] in FUSED:
             x = c['x']
             fused = (x, qw, c['wscale'], c['ascale'], c['bias'], stride,
                      padding, groups, c['compute_dtype'])
             want = int8_conv.quantized_conv2d_reference(*fused)
-            err = _equal_or_fail('quantized_conv2d', c, c['out'], want)
-            _equal_or_fail('quantized_conv2d', c,
-                           int8_conv.quantized_conv2d(*fused), want)
-            qx = torch.clamp(torch.round(x.float() / c['ascale']), -127,
-                             127).to(torch.int8)
-            cls = int8_conv.call_class(tuple(qx.shape), tuple(qw.shape),
-                                       stride, padding, groups)
+            if c['route'] == 'quantized_conv1x1':
+                args = (x, qw, c['wscale'], c['ascale'], c['bias'],
+                        c['compute_dtype'])
+                kernel = lambda: int8_gemm.quantized_conv1x1(*args)
+            else:
+                kernel = lambda: int8_conv.quantized_conv2d(*fused)
+            err = _equal_or_fail(c['route'], c, c['out'], want)
+            _equal_or_fail(c['route'], c, kernel(), want)
+            cls = fused_class(c)
             bound, by = int8_conv.bound_ms(tuple(x.shape), tuple(qw.shape),
                                            tuple(want.shape),
                                            x.element_size(),
                                            want.element_size())
-            ms = graph_ms(lambda: int8_conv.quantized_conv2d(*fused), 5, 2)
+            ms = graph_ms(kernel, 5, 2)
             plain = graph_ms(
                 lambda: int8_conv.quantized_conv2d_reference(*fused), 5, 2)
-            add('quantized_conv2d', ms, plain, bound, by, err, cls)
-            shapes.append({'route': 'quantized_conv2d', 'class': cls,
-                           'x': list(x.shape), 'dtype': str(x.dtype),
-                           'contiguous': x.is_contiguous(),
-                           'w': list(qw.shape), 'stride': list(stride),
-                           'groups': groups, 'ms': ms, 'plain_ms': plain,
-                           'bound_ms': bound, 'bound_by': by})
+            add(c['route'], ms, plain, bound, by, err, cls)
+            row = {'route': c['route'], 'class': cls, 'x': list(x.shape),
+                   'dtype': str(x.dtype), 'contiguous': x.is_contiguous(),
+                   'w': list(qw.shape), 'stride': list(stride),
+                   'groups': groups, 'ms': ms, 'plain_ms': plain,
+                   'bound_ms': bound, 'bound_by': by}
+            shapes.append(row)
+            qx = int8_conv._quantize(x, c['ascale'])
         else:
             qx = c['qx']
-            cls = None
-        # the int32 accumulators: the route's own (a GEMM call's also
-        # through int8_conv2d), against the fp64 conv
+        # the int32 accumulators: int8_conv2d's and, on a 1x1, the s8
+        # GEMM's, against the fp64 conv
         want = int8_conv.int8_conv2d_reference(qx, qw, stride, padding,
                                                groups)
         got = {'int8_conv2d': int8_conv.int8_conv2d(qx, qw, stride, padding,
                                                     groups)}
-        if c['route'] == 'int_mm':
-            got['int_mm'] = c['out']
+        gemm = int8_conv.route(qx.shape, qw.shape, stride, padding,
+                               groups) == 'int_mm'
+        if gemm:
+            got['int_mm'] = c['out'] if c['route'] == 'int_mm' else \
+                int8_conv.int_mm(qx, qw)
         for r, g in got.items():
             totals[r]['max_abs_err'] = max(totals[r]['max_abs_err'],
                                            _equal_or_fail(r, c, g, want))
-        timed = 'int_mm' if c['route'] == 'int_mm' else 'int8_conv2d'
+        timed = 'int_mm' if gemm else 'int8_conv2d'
         if timed == 'int_mm':
             ms = graph_ms(lambda: int8_conv.int_mm(qx, qw), 5, 2)
         else:
@@ -2424,10 +2467,14 @@ def check_int8_calls(calls: list) -> dict:
         bound, by = int8_conv.bound_ms(tuple(qx.shape), tuple(qw.shape),
                                        tuple(want.shape))
         add(timed, ms, plain, bound, by, 0.0, cls)
-        row = {'route': timed, 'class': cls, 'x': list(qx.shape),
-               'w': list(qw.shape), 'stride': list(stride),
-               'groups': groups, 'ms': ms, 'plain_ms': plain,
-               'bound_ms': bound, 'bound_by': by}
+        sums = {'route': timed, 'class': cls, 'x': list(qx.shape),
+                'w': list(qw.shape), 'stride': list(stride),
+                'groups': groups, 'ms': ms, 'plain_ms': plain,
+                'bound_ms': bound, 'bound_by': by}
+        if timed == 'int_mm' and c['route'] == 'quantized_conv1x1':
+            totals['quantized_conv1x1']['library_ms'] += ms
+            lc = classes[cls]['quantized_conv1x1']
+            lc['library_ms'] = lc.get('library_ms', 0.0) + ms
         if timed == 'int8_conv2d':
             lib = library_conv(qx, qw, stride, padding, groups)
             exact = bool(torch.equal(lib, lib.round()) and torch.equal(
@@ -2436,11 +2483,12 @@ def check_int8_calls(calls: list) -> dict:
                                                    groups), 5, 2)
             totals['int8_conv2d']['library_ms'] += lib_ms
             totals['int8_conv2d']['library_exact'] += exact
-            lc = classes[cls].setdefault('library', {'ms': 0.0, 'exact': 0})
+            lc = classes.setdefault(cls, {}).setdefault(
+                'library', {'ms': 0.0, 'exact': 0})
             lc['ms'] += lib_ms
             lc['exact'] += exact
-            row.update(library_ms=lib_ms, library_exact=exact)
-        shapes.append(row)
+            sums.update(library_ms=lib_ms, library_exact=exact)
+        shapes.append(sums)
     return {'totals': totals, 'classes': classes, 'shapes': shapes}
 
 
@@ -2452,11 +2500,14 @@ def expect_int8(what: str, per_route: dict) -> dict:
     return counts
 
 
-def quant_phase(batch: int, seed: int, device, card: str):
+def quant_phase(batch: int, seed: int, device, card: str,
+                kernels_only: bool = False):
     """The int8 PTQ path of the shipped student at D2@768: the pack, both
     int8 routes against the plain version on every quantized conv's own
     input, make_serving_fn(quant_pack=) against the bf16 fused predictor,
-    and evaluate() with quant_inference=True on a Freiburg tree."""
+    and evaluate() with quant_inference=True on a Freiburg tree. With
+    `kernels_only` (`--int8-kernels`) only the pack and the recorded
+    forward's checks and timings."""
     t0 = time.perf_counter()
     sections = {}
     model = seeded_detector(seed, batch, device)
@@ -2484,12 +2535,16 @@ def quant_phase(batch: int, seed: int, device, card: str):
                    for r in INT8_ROUTES}
     # int8_conv2d is recorded 0 times: a launch of it fails here
     expect_int8('the recorded forward', per_forward)
-    fused_inputs = {'calls': per_forward['quantized_conv2d'],
-                    'not NHWC in memory': sum(
-                        not c['x'].is_contiguous() for c in calls
-                        if c['route'] == 'quantized_conv2d'),
-                    'dtypes': sorted({str(c['x'].dtype) for c in calls
-                                      if c['route'] == 'quantized_conv2d'})}
+    if per_forward != INT8_PER_FORWARD:
+        raise AssertionError(f'one forward made the int8 calls {per_forward}'
+                             f', expected {INT8_PER_FORWARD}')
+    fused_inputs = {r: {'calls': per_forward[r],
+                        'not NHWC in memory': sum(
+                            not c['x'].is_contiguous() for c in calls
+                            if c['route'] == r),
+                        'dtypes': sorted({str(c['x'].dtype) for c in calls
+                                          if c['route'] == r})}
+                    for r in FUSED}
     checked = check_int8_calls(calls)
     del calls
     sections['pack and routes'] = time.perf_counter() - t0
@@ -2503,6 +2558,8 @@ def quant_phase(batch: int, seed: int, device, card: str):
         print(f'{card} | {r}, one forward: ' + json.dumps(t), flush=True)
     for cls, t in sorted(checked['classes'].items()):
         print(f'{card} | class {cls}: ' + json.dumps(t), flush=True)
+    if kernels_only:
+        return checked
 
     # (3) make_serving_fn(quant_pack=): the main path, counts 0 just
     # before and read just after
@@ -2749,6 +2806,9 @@ def main(argv=None) -> int:
     p.add_argument('--export-worker', action='store_true',
                    help='run as the replay process of phase 11')
     p.add_argument('--spec', help="a worker's JSON spec (phases 9, 11)")
+    p.add_argument('--int8-kernels', action='store_true',
+                   help="only phase 10's checks and timings of the int8 "
+                   'kernels on one forward (no result line)')
     a = p.parse_args(argv)
     if a.export_worker:
         export_worker(json.loads(Path(a.spec).read_text()))
@@ -2790,6 +2850,14 @@ def main(argv=None) -> int:
             print(f'  nvcc {name}: {injected} wgmma fences/waits injected '
                   'by ptxas')
 
+    if a.int8_kernels:
+        checked = quant_phase(a.batch, a.seed, device, card,
+                              kernels_only=True)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / f'int8_kernels_s{a.seed}.json').write_text(json.dumps(
+            {'card': card, 'build_s': build_s, **checked}, indent=1,
+            default=str))
+        return 0
     totals, rows = kernel_phase(a.batch, a.seed, device)
     results = {'slice': slice_phase(a.batch, a.seed, device),
                'teachers': teacher_phase(a.batch, a.seed, device, card),
@@ -2813,11 +2881,11 @@ def main(argv=None) -> int:
             'library_ms': None})
     int8_totals = results['quant']['int8']['totals']
     for name, lib in (('int8_conv2d', 'library_ms'),
-                      ('quantized_conv2d', None)):
+                      ('quantized_conv2d', None),
+                      ('quantized_conv1x1', 'library_ms')):
         t = int8_totals[name]
         kernels.append({
-            'name': name, 'route': 'cuda',
-            'source': 'mm_distillnet_torch/csrc/int8_conv.cu',
+            'name': name, 'route': 'cuda', 'source': INT8_SOURCES[name],
             'replaces': INT8_REPLACES,
             'launches': results['quant']['counts'][name],
             'max_abs_err': t['max_abs_err'], 'ms': t['ms'],

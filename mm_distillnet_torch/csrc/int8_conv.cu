@@ -6,10 +6,11 @@
 // Replaces no Pallas kernel: the JAX package computes this convolution with
 // XLA (mm_distillnet_tpu/quant.py:209-223, lax.conv_general_dilated with
 // preferred_element_type=int32) and fuses the fp32 rescale and bias into it.
-// It takes every quantized conv that the s8 GEMM route (torch._int_mm, for
-// the 1x1 stride-1 ungrouped convs) does not: at D2@768 batch 8, 103
-// depthwise 3x3 / 5x5 convs at stride 1 and 2 over 16-2,112 channels and
-// 8x8-386x386 maps, and the 3x3 stride-2 stem (8 -> 32 channels).
+// It takes every quantized conv that the 'int_mm' route (the 1x1 stride-1
+// ungrouped convs: int8_gemm.cuh's fused s8 GEMM, torch._int_mm for the
+// plain version's sums) does not: at D2@768 batch 8, 103 depthwise 3x3 /
+// 5x5 convs at stride 1 and 2 over 16-2,112 channels and 8x8-386x386
+// maps, and the 3x3 stride-2 stem (8 -> 32 channels).
 //
 // Two entry points over the same tile loops:
 //   int8_conv2d       int8 NHWC input, int32 NHWC output (exact sums);
@@ -61,8 +62,14 @@
 // image has fewer than 2^31 elements); no division sits in a loop over
 // taps. The sums are exact in int32 (|acc| <= 127^2 K, the wrapper checks
 // K), so any order gives the same bits. No CTA walks a second tile, so
-// nothing is double-buffered: several CTAs per SM overlap one's loads with
-// another's arithmetic.
+// nothing is double-buffered: several CTAs per SM overlap one's loads and
+// prologue with another's sums. On an H100 this beat persistent CTAs that
+// split into producer warps (the quantize) and consumer warps (the sums):
+// the quantize costs more issue slots than the sums, so fixed groups leave
+// one of them idle.
+// The quantize of a halo: value by value (quant1) on 3x3 stride-1 tiles,
+// as one branch-free group a slot (quant_words) on the others, whichever
+// measured faster on the card for the class.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,7 +77,11 @@
 #include <cstring>
 #include <type_traits>
 
+#include "int8_common.cuh"
+
 namespace {
+
+using namespace int8q;
 
 // The launch's fields, in the order of ops/int8_conv.py ARGS.
 struct Args {
@@ -83,7 +94,6 @@ constexpr int kNumArgs = 33;
 static_assert(sizeof(Args) == kNumArgs * sizeof(int), "Args is ints only");
 
 enum Path { kDepthwise = 0, kStem = 1, kGeneral = 2 };
-enum Dtype { kInt8 = 0, kBf16 = 1, kFp32 = 2, kFp16 = 3 };
 constexpr int kSpw = 8;              // outputs per thread along W (depthwise)
 constexpr int kSmemLimit = 232448;   // shared memory a CTA may opt in to
 constexpr int kMaxThreads = 512;     // the tile kernels' CTA (<= 128 regs)
@@ -97,59 +107,6 @@ struct Ptrs {
   const float* wscale;  // (Cout,) fp32
   const void* bias;     // (Cout,) in bias_dtype, or null
 };
-
-struct Bf16 {  // bf16 storage
-  unsigned short bits;
-};
-struct F16 {  // fp16 storage
-  unsigned short bits;
-};
-
-__device__ __forceinline__ float to_float(Bf16 v) {
-  return __uint_as_float((unsigned)v.bits << 16);
-}
-__device__ __forceinline__ float to_float(F16 v) {  // exact, subnormals too
-  float f;
-  asm("cvt.f32.f16 %0, %1;" : "=f"(f) : "h"(v.bits));
-  return f;
-}
-
-constexpr float kMagic = 12582912.f;  // 1.5 * 2^23: x + kMagic rounds x
-constexpr int kMagicBits = 0x4B400000;  // to an integer in the low bits
-
-// The activation scale: s = ascale, r ~ 1 / s (rcp.approx: within 1 ulp).
-struct Scale {
-  float s, r;
-};
-
-// One input element quantized: clamp(rint(fl(v / s)), -127, 127), the
-// result in the low byte. Where |v / s| < 128, q = v * r is within 2^-15
-// of fl(v / s) (r's ulp, the product's and the quotient's rounding), so
-// rint(q) can differ from rint(fl(v / s)) only within 2^-14 of a
-// half-integer; there, and where |q| > 126.25 (the clamp), the exact
-// division decides. kMagic rounds half to even as rint does, and with no
-// conversion instruction.
-__device__ __forceinline__ int quant1(float v, Scale sc) {
-  const float q = v * sc.r;
-  float t = q + kMagic;
-  if (fabsf(q - (t - kMagic)) > 0.49993896484375f ||  // 0.5 - 2^-14
-      !(fabsf(q) <= 126.25f))
-    t = fminf(fmaxf(__fdiv_rn(v, sc.s), -127.f), 127.f) + kMagic;
-  return __float_as_int(t);
-}
-__device__ __forceinline__ int quant1(Bf16 v, Scale sc) {
-  return quant1(to_float(v), sc);
-}
-__device__ __forceinline__ int quant1(F16 v, Scale sc) {
-  return quant1(to_float(v), sc);
-}
-__device__ __forceinline__ int quant1(int8_t v, Scale) { return v; }
-
-// four low bytes into a word
-__device__ __forceinline__ int pack4(int a, int b, int c, int d) {
-  return (int)__byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
-                          0x5410);
-}
 
 template <int N> struct Raw;
 template <> struct Raw<4> { using T = int; };
@@ -249,13 +206,33 @@ __device__ __forceinline__ void transpose4(unsigned a, unsigned b,
   out[3] = (int)__byte_perm(t2, t3, 0x7632);
 }
 
+// VEC channels' values at 4 columns (u[k] column k) quantized into VEC
+// words, a word a channel's 4 columns: kGroup, the fast path for all and
+// the exact one where any value needs it (quant_words: no branch), else
+// value by value (quant1). Measured on an H100 per class: the
+// group form is faster for 5x5 and stride-2 tiles, value by value for 3x3
+// stride 1.
+template <bool kGroup, int VEC, class In>
+__device__ __forceinline__ void quant_vec_cols(int (&w)[VEC],
+                                               const Vec<VEC, In> (&u)[4],
+                                               Scale sc) {
+  if constexpr (kGroup) {
+    quant_words(w, sc, [&](int ch, int k) { return u[k].e[ch]; });
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < VEC; ++ch)
+      w[ch] = pack4(quant1(u[0].e[ch], sc), quant1(u[1].e[ch], sc),
+                    quant1(u[2].e[ch], sc), quant1(u[3].e[ch], sc));
+  }
+}
+
 // The depthwise tile's halo in shared memory as [row][column group]
 // [channel] words: a word holds one channel's int8 values at 4
 // consecutive columns, a.pitch bytes a (row, column group) slot, zero
 // outside the input. Each thread loads the 4 columns of a group as 4
 // vectors of VEC channels (in flight together) and transposes them (int8)
 // or quantizes them into place.
-template <int VEC, class In>
+template <bool kGroup, int VEC, class In>
 __device__ void load_halo_cols_v(int* halo, const In* __restrict__ x,
                                  const Args& a, int iy0, int ix0, int c0,
                                  Scale sc) {
@@ -291,10 +268,7 @@ __device__ void load_halo_cols_v(int* halo, const In* __restrict__ x,
           transpose4(u[0].w[cg], u[1].w[cg], u[2].w[cg], u[3].w[cg],
                      w + 4 * cg);
       } else {
-#pragma unroll
-        for (int ch = 0; ch < VEC; ++ch)
-          w[ch] = pack4(quant1(u[0].e[ch], sc), quant1(u[1].e[ch], sc),
-                        quant1(u[2].e[ch], sc), quant1(u[3].e[ch], sc));
+        quant_vec_cols<kGroup>(w, u, sc);
       }
       int4* dst = reinterpret_cast<int4*>(halo + pos * cbp + v * VEC);
 #pragma unroll
@@ -310,17 +284,17 @@ __device__ void load_halo_cols_v(int* halo, const In* __restrict__ x,
   }
 }
 
-template <class In>
+template <bool kGroup, class In>
 __device__ __forceinline__ void load_halo_cols(int* halo,
                                                const In* __restrict__ x,
                                                const Args& a, int iy0,
                                                int ix0, int c0, Scale sc) {
   if (a.vec == 16)
-    load_halo_cols_v<16>(halo, x, a, iy0, ix0, c0, sc);
+    load_halo_cols_v<kGroup, 16>(halo, x, a, iy0, ix0, c0, sc);
   else if (a.vec == 8)
-    load_halo_cols_v<8>(halo, x, a, iy0, ix0, c0, sc);
+    load_halo_cols_v<kGroup, 8>(halo, x, a, iy0, ix0, c0, sc);
   else
-    load_halo_cols_v<4>(halo, x, a, iy0, ix0, c0, sc);
+    load_halo_cols_v<kGroup, 4>(halo, x, a, iy0, ix0, c0, sc);
 }
 
 template <class In>
@@ -344,46 +318,6 @@ __device__ __forceinline__ float small_int_to_float(int acc) {
   return __int_as_float(kMagicBits + acc) - kMagic;
 }
 
-// two floats rounded to bf16 or fp16 (nearest even, subnormals kept, as
-// torch's float -> bf16 / fp16 on the card), lo in the low half
-__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
-  unsigned d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-__device__ __forceinline__ unsigned f16x2(float lo, float hi) {
-  unsigned d;
-  asm("cvt.rn.f16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-
-// y rounded to the dtype `d` (kBf16, kFp16; else unchanged), as a float
-__device__ __forceinline__ float round_to(float y, int d) {
-  if (d == kBf16) return __uint_as_float(bf16x2(y, 0.f) << 16);
-  if (d == kFp16) return to_float(F16{(unsigned short)f16x2(y, 0.f)});
-  return y;
-}
-
-template <class Out> struct OutDtype;
-template <> struct OutDtype<float> { static constexpr int value = kFp32; };
-template <> struct OutDtype<Bf16> { static constexpr int value = kBf16; };
-template <> struct OutDtype<F16> { static constexpr int value = kFp16; };
-
-// The epilogue of an output channel: the dequantized value of an int32
-// sum, rounded as torch's unfused sequence rounds it: fl(fl(acc * s) + b),
-// then through the compute dtype and to x's (the store rounds).
-struct Epilogue {
-  float s;    // ascale * wscale[o]
-  float b;    // bias[o]
-  bool bias;  // add b
-  int round;  // the compute dtype (kBf16, kFp16, kFp32)
-
-  __device__ __forceinline__ float operator()(float accf) const {
-    const float y = __fmul_rn(accf, s);
-    return bias ? __fadd_rn(y, b) : y;
-  }
-};
-
 template <class Out>
 __device__ __forceinline__ Epilogue epilogue(const Ptrs& p, const Args& a,
                                              float ascale, int o) {
@@ -391,12 +325,7 @@ __device__ __forceinline__ Epilogue epilogue(const Ptrs& p, const Args& a,
   if constexpr (!std::is_same<Out, int32_t>::value) {
     e.s = __fmul_rn(ascale, __ldg(p.wscale + o));
     e.bias = p.bias != nullptr;
-    if (e.bias)
-      e.b = a.bias_dtype == kBf16
-                ? to_float(static_cast<const Bf16*>(p.bias)[o])
-            : a.bias_dtype == kFp16
-                ? to_float(static_cast<const F16*>(p.bias)[o])
-                : __ldg(static_cast<const float*>(p.bias) + o);
+    if (e.bias) e.b = bias_at(p.bias, a.bias_dtype, o);
     e.round = a.compute_dtype;
   }
   return e;
@@ -456,10 +385,7 @@ __device__ __forceinline__ Scale act_scale(const Ptrs& p) {
   if constexpr (std::is_same<In, int8_t>::value) {
     return Scale{1.f, 1.f};
   } else {
-    const float s = __ldg(p.ascale);
-    float r;
-    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(s));
-    return Scale{s, r};
+    return load_scale(p.ascale);
   }
 }
 
@@ -477,45 +403,19 @@ __device__ __forceinline__ int window(const int (&xw)[NW][4], int col,
   return sh ? (int)__funnelshift_r((unsigned)lo, (unsigned)hi, 8 * sh) : lo;
 }
 
-template <int K, int S, class In, class Out, bool kTwice>
-__global__ void __launch_bounds__(kMaxThreads)
-    dw_kernel(const Ptrs p, const Args a) {
+// The sums of a depthwise tile from its halo words and taps in shared
+// memory, and their stores: this thread's 4 channels from c = c0 + 4q, a
+// strip of 8 outputs from (oy0 + sy rpt, ox0 + 8 sxi), rpt rows of it.
+template <int K, int S, class Out, bool kTwice>
+__device__ __forceinline__ void dw_tile(const int* halo, const int* taps,
+                                        const Ptrs& p, const Args& a,
+                                        const Epilogue* e, int b, int c,
+                                        int q, int sy, int sxi, int oy0,
+                                        int ox0) {
   constexpr int kNw = ((kSpw - 1) * S + K + 3) / 4;  // words of a strip row
   constexpr int kTapWords = K == 5 ? 2 : 1;  // words of a row of taps
-  extern __shared__ __align__(16) unsigned char smem[];
   const int ncg = (a.halo_w + 3) >> 2;
   const int cbp = a.pitch >> 2;
-  int* halo = reinterpret_cast<int*>(smem);
-  int* taps = reinterpret_cast<int*>(smem + round16(a.halo_h * ncg * a.pitch));
-  const int t = threadIdx.x;
-  const int b = blockIdx.z / a.cblocks;
-  const int c0 = (blockIdx.z - b * a.cblocks) * a.cb;
-  const int oy0 = blockIdx.y * a.th, ox0 = blockIdx.x * a.tw;
-  const In* x = static_cast<const In*>(p.x) + (size_t)b * a.H * a.W * a.cin;
-  const Scale sc = act_scale<In>(p);
-  const int nq = a.cb >> 2;
-  const int q = t % nq, strip = t / nq;
-  const int nsx = a.tw / kSpw;
-  const int sy = strip / nsx, sxi = strip - sy * nsx;
-  const int c = c0 + 4 * q;
-  Epilogue e[4];  // its loads in flight with the taps' and the halo's
-#pragma unroll
-  for (int ch = 0; ch < 4; ++ch)
-    e[ch] = epilogue<Out>(p, a, sc.s, min(c + ch, a.cin - 1));
-
-  // the block's taps as they lie in OIHW ([channel][tap] bytes), copied as
-  // words; the first words are in flight with the halo's loads
-  const int nw = K * K * a.cb / 4;
-  const int nvalid = K * K * min(a.cb, a.cin - c0) / 4;
-  const int* wsrc = reinterpret_cast<const int*>(p.w + c0 * (K * K));
-  const int w0 = t < nvalid ? __ldg(wsrc + t) : 0;
-  load_halo_cols(halo, x, a, oy0 * S - a.pt, ox0 * S - a.pl, c0, sc);
-  for (int i = t; i < nw; i += a.threads)
-    taps[i] = i == t ? w0 : i < nvalid ? __ldg(wsrc + i) : 0;
-  __syncthreads();
-  // threads past the strips only loaded (small maps: more loads in flight)
-  if (c >= a.cin || sy * a.rpt >= a.th) return;
-
   // a row of taps of a channel as words of 4 (K = 3: the fourth zero;
   // K = 5: taps 0-3 and tap 4)
   int tw[4][K][kTapWords];
@@ -572,6 +472,45 @@ __global__ void __launch_bounds__(kMaxThreads)
       if (ox + j < a.wo)
         store4<kTwice>(out + (oy * a.wo + ox + j) * a.cout + c, acc[j], e);
   }
+}
+
+template <int K, int S, class In, class Out, bool kTwice>
+__global__ void __launch_bounds__(kMaxThreads)
+    dw_kernel(const Ptrs p, const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ncg = (a.halo_w + 3) >> 2;
+  int* halo = reinterpret_cast<int*>(smem);
+  int* taps = reinterpret_cast<int*>(smem + round16(a.halo_h * ncg * a.pitch));
+  const int t = threadIdx.x;
+  const int b = blockIdx.z / a.cblocks;
+  const int c0 = (blockIdx.z - b * a.cblocks) * a.cb;
+  const int oy0 = blockIdx.y * a.th, ox0 = blockIdx.x * a.tw;
+  const In* x = static_cast<const In*>(p.x) + (size_t)b * a.H * a.W * a.cin;
+  const Scale sc = act_scale<In>(p);
+  const int nq = a.cb >> 2;
+  const int q = t % nq, strip = t / nq;
+  const int nsx = a.tw / kSpw;
+  const int sy = strip / nsx, sxi = strip - sy * nsx;
+  const int c = c0 + 4 * q;
+  Epilogue e[4];  // its loads in flight with the taps' and the halo's
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch)
+    e[ch] = epilogue<Out>(p, a, sc.s, min(c + ch, a.cin - 1));
+
+  // the block's taps as they lie in OIHW ([channel][tap] bytes), copied as
+  // words; the first words are in flight with the halo's loads
+  const int nw = K * K * a.cb / 4;
+  const int nvalid = K * K * min(a.cb, a.cin - c0) / 4;
+  const int* wsrc = reinterpret_cast<const int*>(p.w + c0 * (K * K));
+  const int w0 = t < nvalid ? __ldg(wsrc + t) : 0;
+  load_halo_cols<!(K == 3 && S == 1)>(halo, x, a, oy0 * S - a.pt,
+                                      ox0 * S - a.pl, c0, sc);
+  for (int i = t; i < nw; i += a.threads)
+    taps[i] = i == t ? w0 : i < nvalid ? __ldg(wsrc + i) : 0;
+  __syncthreads();
+  // threads past the strips only loaded (small maps: more loads in flight)
+  if (c >= a.cin || sy * a.rpt >= a.th) return;
+  dw_tile<K, S, Out, kTwice>(halo, taps, p, a, e, b, c, q, sy, sxi, oy0, ox0);
 }
 
 // ---- stem: small dense conv, dp4a over 4-channel words ----

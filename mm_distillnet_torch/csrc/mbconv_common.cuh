@@ -1,10 +1,13 @@
-// Device helpers shared by the MBConv kernels (Hopper, sm_90a): mbarrier and
+// Device helpers shared by the Hopper (sm_90a) kernels: mbarrier and
 // named barriers, bulk and 16-byte asynchronous copies, cluster barriers and
 // distributed shared memory, programmatic dependent launch, ldmatrix, and
-// wgmma with its shared-memory descriptors. Thin wrappers of PTX; no policy
-// here. One host helper: the per-device dynamic shared memory limit.
+// wgmma (bf16, and s8 for the int8 GEMM) with its shared-memory
+// descriptors. Thin wrappers of PTX; no policy
+// here. Host helpers: the per-device dynamic shared memory limit, and the
+// driver's tensor-map encoder for the TMA copies.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,6 +123,50 @@ __device__ __forceinline__ void cp_async_wait() {
 // asynchronous proxy (wgmma operands, bulk copies)
 __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- the tensor memory accelerator (TMA) ----------------------------------
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime so that the library
+// needs no -lcuda; null where the driver lacks it
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &status) != cudaSuccess ||
+        status != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A box of a 2- or 3-D tensor map at the coordinates given (innermost
+// first; out of bounds reads as zeros) into shared memory at `dst`,
+// completion counted on the mbarrier `bar` by its bytes.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
 }
 
 // ---- thread-block clusters ------------------------------------------------
@@ -410,6 +457,205 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&c)[128], const uint32_t (&
         "+f"(c[120]), "+f"(c[121]), "+f"(c[122]), "+f"(c[123]),
         "+f"(c[124]), "+f"(c[125]), "+f"(c[126]), "+f"(c[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x N] (+)= A[64 x 32] * B[32 x N] in int8 with exact int32 sums, A
+// from registers (each warp's 16 rows as the m16n8k32 s8 A fragment: a[0]
+// row g bytes 4q-4q+3, a[1] row g + 8, a[2] and a[3] the same rows at k +
+// 16), B K-major from shared memory (8 x 16-byte core matrices); sums in
+// c[N / 2] in the fp32 accumulator layout. scale_d = 0 starts a new sum.
+template <int N>
+__device__ __forceinline__ void wgmma_s8_rs(int (&c)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<16>(int (&c)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p;\n}\n"
+      :
+        "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]),
+        "+r"(c[4]), "+r"(c[5]), "+r"(c[6]), "+r"(c[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<32>(int (&c)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      :
+        "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]),
+        "+r"(c[4]), "+r"(c[5]), "+r"(c[6]), "+r"(c[7]),
+        "+r"(c[8]), "+r"(c[9]), "+r"(c[10]), "+r"(c[11]),
+        "+r"(c[12]), "+r"(c[13]), "+r"(c[14]), "+r"(c[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<64>(int (&c)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      :
+        "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]),
+        "+r"(c[4]), "+r"(c[5]), "+r"(c[6]), "+r"(c[7]),
+        "+r"(c[8]), "+r"(c[9]), "+r"(c[10]), "+r"(c[11]),
+        "+r"(c[12]), "+r"(c[13]), "+r"(c[14]), "+r"(c[15]),
+        "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
+        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]),
+        "+r"(c[24]), "+r"(c[25]), "+r"(c[26]), "+r"(c[27]),
+        "+r"(c[28]), "+r"(c[29]), "+r"(c[30]), "+r"(c[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<96>(int (&c)[48],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p;\n}\n"
+      :
+        "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]),
+        "+r"(c[4]), "+r"(c[5]), "+r"(c[6]), "+r"(c[7]),
+        "+r"(c[8]), "+r"(c[9]), "+r"(c[10]), "+r"(c[11]),
+        "+r"(c[12]), "+r"(c[13]), "+r"(c[14]), "+r"(c[15]),
+        "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
+        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]),
+        "+r"(c[24]), "+r"(c[25]), "+r"(c[26]), "+r"(c[27]),
+        "+r"(c[28]), "+r"(c[29]), "+r"(c[30]), "+r"(c[31]),
+        "+r"(c[32]), "+r"(c[33]), "+r"(c[34]), "+r"(c[35]),
+        "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
+        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]),
+        "+r"(c[44]), "+r"(c[45]), "+r"(c[46]), "+r"(c[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<128>(int (&c)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      :
+        "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]),
+        "+r"(c[4]), "+r"(c[5]), "+r"(c[6]), "+r"(c[7]),
+        "+r"(c[8]), "+r"(c[9]), "+r"(c[10]), "+r"(c[11]),
+        "+r"(c[12]), "+r"(c[13]), "+r"(c[14]), "+r"(c[15]),
+        "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
+        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]),
+        "+r"(c[24]), "+r"(c[25]), "+r"(c[26]), "+r"(c[27]),
+        "+r"(c[28]), "+r"(c[29]), "+r"(c[30]), "+r"(c[31]),
+        "+r"(c[32]), "+r"(c[33]), "+r"(c[34]), "+r"(c[35]),
+        "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
+        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]),
+        "+r"(c[44]), "+r"(c[45]), "+r"(c[46]), "+r"(c[47]),
+        "+r"(c[48]), "+r"(c[49]), "+r"(c[50]), "+r"(c[51]),
+        "+r"(c[52]), "+r"(c[53]), "+r"(c[54]), "+r"(c[55]),
+        "+r"(c[56]), "+r"(c[57]), "+r"(c[58]), "+r"(c[59]),
+        "+r"(c[60]), "+r"(c[61]), "+r"(c[62]), "+r"(c[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<192>(int (&c)[96],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p;\n}\n"
+      :
+        "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]),
+        "+r"(c[4]), "+r"(c[5]), "+r"(c[6]), "+r"(c[7]),
+        "+r"(c[8]), "+r"(c[9]), "+r"(c[10]), "+r"(c[11]),
+        "+r"(c[12]), "+r"(c[13]), "+r"(c[14]), "+r"(c[15]),
+        "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
+        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]),
+        "+r"(c[24]), "+r"(c[25]), "+r"(c[26]), "+r"(c[27]),
+        "+r"(c[28]), "+r"(c[29]), "+r"(c[30]), "+r"(c[31]),
+        "+r"(c[32]), "+r"(c[33]), "+r"(c[34]), "+r"(c[35]),
+        "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
+        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]),
+        "+r"(c[44]), "+r"(c[45]), "+r"(c[46]), "+r"(c[47]),
+        "+r"(c[48]), "+r"(c[49]), "+r"(c[50]), "+r"(c[51]),
+        "+r"(c[52]), "+r"(c[53]), "+r"(c[54]), "+r"(c[55]),
+        "+r"(c[56]), "+r"(c[57]), "+r"(c[58]), "+r"(c[59]),
+        "+r"(c[60]), "+r"(c[61]), "+r"(c[62]), "+r"(c[63]),
+        "+r"(c[64]), "+r"(c[65]), "+r"(c[66]), "+r"(c[67]),
+        "+r"(c[68]), "+r"(c[69]), "+r"(c[70]), "+r"(c[71]),
+        "+r"(c[72]), "+r"(c[73]), "+r"(c[74]), "+r"(c[75]),
+        "+r"(c[76]), "+r"(c[77]), "+r"(c[78]), "+r"(c[79]),
+        "+r"(c[80]), "+r"(c[81]), "+r"(c[82]), "+r"(c[83]),
+        "+r"(c[84]), "+r"(c[85]), "+r"(c[86]), "+r"(c[87]),
+        "+r"(c[88]), "+r"(c[89]), "+r"(c[90]), "+r"(c[91]),
+        "+r"(c[92]), "+r"(c[93]), "+r"(c[94]), "+r"(c[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<256>(int (&c)[128],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p;\n}\n"
+      :
+        "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]),
+        "+r"(c[4]), "+r"(c[5]), "+r"(c[6]), "+r"(c[7]),
+        "+r"(c[8]), "+r"(c[9]), "+r"(c[10]), "+r"(c[11]),
+        "+r"(c[12]), "+r"(c[13]), "+r"(c[14]), "+r"(c[15]),
+        "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
+        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]),
+        "+r"(c[24]), "+r"(c[25]), "+r"(c[26]), "+r"(c[27]),
+        "+r"(c[28]), "+r"(c[29]), "+r"(c[30]), "+r"(c[31]),
+        "+r"(c[32]), "+r"(c[33]), "+r"(c[34]), "+r"(c[35]),
+        "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
+        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]),
+        "+r"(c[44]), "+r"(c[45]), "+r"(c[46]), "+r"(c[47]),
+        "+r"(c[48]), "+r"(c[49]), "+r"(c[50]), "+r"(c[51]),
+        "+r"(c[52]), "+r"(c[53]), "+r"(c[54]), "+r"(c[55]),
+        "+r"(c[56]), "+r"(c[57]), "+r"(c[58]), "+r"(c[59]),
+        "+r"(c[60]), "+r"(c[61]), "+r"(c[62]), "+r"(c[63]),
+        "+r"(c[64]), "+r"(c[65]), "+r"(c[66]), "+r"(c[67]),
+        "+r"(c[68]), "+r"(c[69]), "+r"(c[70]), "+r"(c[71]),
+        "+r"(c[72]), "+r"(c[73]), "+r"(c[74]), "+r"(c[75]),
+        "+r"(c[76]), "+r"(c[77]), "+r"(c[78]), "+r"(c[79]),
+        "+r"(c[80]), "+r"(c[81]), "+r"(c[82]), "+r"(c[83]),
+        "+r"(c[84]), "+r"(c[85]), "+r"(c[86]), "+r"(c[87]),
+        "+r"(c[88]), "+r"(c[89]), "+r"(c[90]), "+r"(c[91]),
+        "+r"(c[92]), "+r"(c[93]), "+r"(c[94]), "+r"(c[95]),
+        "+r"(c[96]), "+r"(c[97]), "+r"(c[98]), "+r"(c[99]),
+        "+r"(c[100]), "+r"(c[101]), "+r"(c[102]), "+r"(c[103]),
+        "+r"(c[104]), "+r"(c[105]), "+r"(c[106]), "+r"(c[107]),
+        "+r"(c[108]), "+r"(c[109]), "+r"(c[110]), "+r"(c[111]),
+        "+r"(c[112]), "+r"(c[113]), "+r"(c[114]), "+r"(c[115]),
+        "+r"(c[116]), "+r"(c[117]), "+r"(c[118]), "+r"(c[119]),
+        "+r"(c[120]), "+r"(c[121]), "+r"(c[122]), "+r"(c[123]),
+        "+r"(c[124]), "+r"(c[125]), "+r"(c[126]), "+r"(c[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 }  // namespace mbconv

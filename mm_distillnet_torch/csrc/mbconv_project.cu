@@ -84,16 +84,6 @@ __host__ __device__ constexpr int project_smem(int nt, int nwg, int kmax,
   return HEADER + (alias_out ? (ring > out ? ring : out) : ring + out);
 }
 
-// a 64 x 64 box of the tensor map, at (column c0, row c1), onto the barrier
-__device__ __forceinline__ void tma_load_box(uint32_t dst, const CUtensorMap* map,
-                                             int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // One CTA = NWG consumer warpgroups, each with 64 rows of a tile of 64 NWG
 // rows and sharing the w_prj piece of a stage, and a producer warpgroup whose
 // first warp issues every copy. The CTA walks over the row tiles blockIdx.x,
@@ -196,8 +186,8 @@ project_kernel(const __grid_constant__ CUtensorMap d_map,
       } else if (lane <= NWG * 2) {
         const int box = lane - 1;  // warpgroup * 2 + half
         if ((box & 1) < halves)
-          tma_load_box(dst + (box >> 1) * a_b + (box & 1) * BOX_BYTES, &d_map,
-                       k0 + (box & 1) * 64, m0 + (box >> 1) * BM, bar);
+          tma_load_2d(dst + (box >> 1) * a_b + (box & 1) * BOX_BYTES, &d_map,
+                      k0 + (box & 1) * 64, m0 + (box >> 1) * BM, bar);
       } else if (lane <= NWG * 4) {
         const int sel = lane - 1 - NWG * 2;  // warpgroup * 2 + which image
         const int img = min(min(m0 + (sel >> 1) * BM, M - 1) / hw + (sel & 1),
@@ -402,27 +392,6 @@ project_kernel(const __grid_constant__ CUtensorMap d_map,
     step(a0, a1);
     if (t + 1 < nsteps) step(a1, a0);
   }
-}
-
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime so that the library
-// needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &status) != cudaSuccess ||
-        status != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 template <int NT, int NWG, int KS>

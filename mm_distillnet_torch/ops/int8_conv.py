@@ -10,8 +10,12 @@ routes, decided by the shape of each call (`route`):
 
   'int_mm'       a 1x1, stride-1, ungrouped conv with no padding whose Cin
                  and Cout are multiples of 8, on more than 16 rows (B*H*W):
-                 the NHWC input as (B*H*W, Cin) through torch._int_mm
-                 (cuBLASLt's s8 GEMM, TN layout), whose limits these are;
+                 served by the hand-written s8 GEMM of csrc/int8_gemm.cuh
+                 (ops/int8_gemm.py `quantized_conv1x1`, the quantize
+                 prologue and dequantize epilogue inside); the int32 sums
+                 alone go through torch._int_mm (cuBLASLt's s8 GEMM, whose
+                 limits these are), the plain version's card route and the
+                 GEMM's yardstick;
   'int8_conv2d'  every other conv (depthwise, the stem, any 1x1 the GEMM
                  refuses): the hand-written CUDA kernels of
                  csrc/int8_conv.cu.
@@ -29,13 +33,13 @@ tile on the CPU.
 Plain versions: `int8_conv2d_reference`, an fp64 F.conv2d of the int8
 values rounded back to int32, exact because |acc| <= 127^2 K is far below
 2^53; `quantized_conv2d_reference`, the unfused torch sequence (quantize,
-the route's int32 sums, rescale, bias, round). On a CPU tensor every
-wrapper runs its plain version; a CUDA tensor launches the kernel (or the
-GEMM) or raises. The served 'int_mm' route (`quantized_conv` ->
-`_unfused_int_mm`) runs the same torch prologue and epilogue around the
-GEMM, from the helpers `_quantize` and `_dequantize` that the plain
-version also uses. `launches` counts the card's launches of each route and
-kernel; `layout_copies` the inputs the fused wrapper had to copy into NHWC.
+the route's int32 sums, rescale, bias, round), from the helpers `_quantize`
+and `_dequantize`. On a CPU tensor every wrapper runs its plain version; a
+CUDA tensor launches the kernel (or, for `int_mm`, the library GEMM) or
+raises. quant.py's `fused_conv` sends a call to its route's fused kernel
+(`quantized_conv2d` or ops/int8_gemm.py `quantized_conv1x1`). `launches`
+counts the card's launches of each kernel and of `int_mm`;
+`layout_copies` the inputs the fused wrappers had to copy into NHWC.
 
 Layout: activations NHWC (the kernels'), weights OIHW (the port's
 state_dict layout), padding as ((top, bottom), (left, right)) zeros.
@@ -52,9 +56,10 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-launches = {'int8_conv2d': 0, 'int_mm': 0, 'quantized_conv2d': 0}
-# inputs of quantized_conv2d that were not NHWC in memory (one copy each)
-layout_copies = {'quantized_conv2d': 0}
+launches = {'int8_conv2d': 0, 'int_mm': 0, 'quantized_conv2d': 0,
+            'quantized_conv1x1': 0}
+# inputs of the fused kernels that were not NHWC in memory (one copy each)
+layout_copies = {'quantized_conv2d': 0, 'quantized_conv1x1': 0}
 
 # the largest tap count whose int32 sums cannot overflow (127^2 K < 2^31)
 MAX_TAPS = (2 ** 31 - 1) // (127 * 127)
@@ -101,7 +106,8 @@ def route(qx_shape, qw_shape, stride: Tuple[int, int], padding: Pads,
     """The route of a call on qx (B, H, W, Cin) and qw (Cout, Cin/groups,
     kh, kw): 'int_mm' where cuBLASLt's s8 GEMM takes it (a 1x1, stride-1,
     ungrouped conv without padding, Cin and Cout multiples of 8, more than
-    16 rows), else 'int8_conv2d'."""
+    16 rows; served by the fused s8 GEMM of csrc/int8_gemm.cuh), else
+    'int8_conv2d'."""
     b, h, w, cin = qx_shape
     cout = qw_shape[0]
     if (tuple(qw_shape[2:]) == (1, 1) and tuple(stride) == (1, 1)
@@ -572,9 +578,11 @@ def quantized_conv2d(x: torch.Tensor, qw: torch.Tensor,
 
 
 def int_mm(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
-    """A 1x1 conv as the s8 GEMM: qx (B, H, W, Cin) int8, qw (Cout, Cin, 1,
-    1) int8 -> int32 (B, H, W, Cout). A CPU tensor takes the plain
-    version; a CUDA call needs more than 16 rows."""
+    """A 1x1 conv's int32 sums as the library's s8 GEMM (torch._int_mm): qx
+    (B, H, W, Cin) int8, qw (Cout, Cin, 1, 1) int8 -> int32 (B, H, W,
+    Cout). The plain version's card route on the 'int_mm' route and the
+    yardstick of int8_gemm's kernel; no forward launches it. A CPU tensor
+    takes the plain version; a CUDA call needs more than 16 rows."""
     _check(qx, qw, 1)
     if qx.device.type == 'cpu':
         return int8_conv2d_reference(qx, qw, (1, 1), ((0, 0), (0, 0)), 1)
@@ -598,31 +606,6 @@ def conv_int32(qx: torch.Tensor, qw: torch.Tensor, stride: Tuple[int, int],
     if route(qx.shape, qw.shape, stride, padding, groups) == 'int_mm':
         return int_mm(qx, qw)
     return int8_conv2d(qx, qw, stride, padding, groups)
-
-
-def _unfused_int_mm(x: torch.Tensor, qw: torch.Tensor,
-                    wscale: torch.Tensor, ascale: torch.Tensor,
-                    bias: Optional[torch.Tensor],
-                    compute_dtype: torch.dtype) -> torch.Tensor:
-    """The 'int_mm' route as served: the torch prologue, the s8 GEMM
-    (int_mm) and the torch epilogue of a 1x1 conv."""
-    acc = int_mm(_quantize(x, ascale), qw)
-    return _dequantize(acc, wscale, ascale, bias, compute_dtype, x.dtype)
-
-
-def quantized_conv(x: torch.Tensor, qw: torch.Tensor, wscale: torch.Tensor,
-                   ascale: torch.Tensor, bias: Optional[torch.Tensor],
-                   stride: Tuple[int, int], padding: Pads, groups: int,
-                   compute_dtype: torch.dtype = torch.bfloat16
-                   ) -> torch.Tensor:
-    """A quantized conv by its route: an 'int8_conv2d' call through the
-    fused kernel (quantized_conv2d), an 'int_mm' call through the unfused
-    sequence around the s8 GEMM (_unfused_int_mm); on the CPU both give
-    the plain version's result."""
-    if route(x.shape, qw.shape, stride, padding, groups) == 'int8_conv2d':
-        return quantized_conv2d(x, qw, wscale, ascale, bias, stride, padding,
-                                groups, compute_dtype)
-    return _unfused_int_mm(x, qw, wscale, ascale, bias, compute_dtype)
 
 
 def bound_ms(x_shape, qw_shape, out_shape, in_bytes: int = 1,

@@ -12,12 +12,14 @@ after it. The module tree and its weights are not modified.
 - Static symmetric scheme: per-tensor activation scales from the absmax of
   each conv's input over calibration batches, per-output-channel weight
   scales (absmax / 127), both as the JAX package computes them.
-- The int8 convolution runs by route (ops/int8_conv.py): 1x1 stride-1
-  ungrouped convs through the s8 GEMM between the torch prologue and
-  epilogue below, all others through the CUDA kernel `quantized_conv2d`,
-  which fuses them; on the CPU, the exact plain version. The route is
-  decided by the shape of each call (`int8_conv.route`): a conv's row
-  count, and so whether the GEMM takes it, depends on the batch.
+- The int8 convolution runs by route (ops/int8_conv.py), each through a
+  CUDA kernel that fuses the prologue and epilogue below: 1x1 stride-1
+  ungrouped convs through the s8 GEMM `quantized_conv1x1`
+  (ops/int8_gemm.py, its weights repacked once per pack before the
+  forward), all others through `quantized_conv2d`; on the CPU, the exact
+  plain version. The route is decided by the shape of each call
+  (`int8_conv.route`): a conv's row count, and so whether the GEMM takes
+  it, depends on the batch.
 - Prologue `clamp(round_half_even(x / sx), -127, 127)`, epilogue
   `acc * (sx * wscale) + bias` in fp32, rounded through `compute_dtype`
   (bf16 by default, as in the JAX package) and returned in the input's
@@ -46,7 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .ops import int8_conv
+from .ops import int8_conv, int8_gemm
 
 __all__ = ['QuantPolicy', 'QuantPack', 'collect_conv_specs',
            'calibrate_activations', 'quantize_weights', 'build_quant_pack',
@@ -218,17 +220,34 @@ def pack_to(pack: QuantPack, device) -> QuantPack:
                        for d in pack))
 
 
+def fused_conv(x: torch.Tensor, qw: torch.Tensor, wscale: torch.Tensor,
+               ascale: torch.Tensor, bias: Optional[torch.Tensor],
+               stride: Tuple[int, int], padding: int8_conv.Pads, groups: int,
+               compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """A quantized conv on x (B, H, W, Cin) through its route's fused
+    kernel (int8_conv.route): an 'int8_conv2d' call through
+    int8_conv.quantized_conv2d, an 'int_mm' call through
+    int8_gemm.quantized_conv1x1; on the CPU both give the plain version's
+    result."""
+    if int8_conv.route(x.shape, qw.shape, stride, padding,
+                       groups) == 'int8_conv2d':
+        return int8_conv.quantized_conv2d(x, qw, wscale, ascale, bias, stride,
+                                          padding, groups, compute_dtype)
+    return int8_gemm.quantized_conv1x1(x, qw, wscale, ascale, bias,
+                                       compute_dtype)
+
+
 def quantized_conv(conv: nn.Conv2d, x: torch.Tensor, qkernel: torch.Tensor,
                    wscale: torch.Tensor, ascale: torch.Tensor,
                    compute_dtype: torch.dtype = torch.bfloat16
                    ) -> torch.Tensor:
     """One conv of the module tree as int8 x int8 -> int32: x (B, C, H, W)
     -> (B, O, Ho, Wo) in x's dtype (NHWC in memory), by route
-    (int8_conv.quantized_conv: the fused kernel on the card, or the unfused
-    sequence)."""
-    y = int8_conv.quantized_conv(x.permute(0, 2, 3, 1), qkernel, wscale,
-                                 ascale, conv.bias, tuple(conv.stride),
-                                 _padding(conv), conv.groups, compute_dtype)
+    (fused_conv: the route's fused kernel on the card, the plain version
+    on the CPU)."""
+    y = fused_conv(x.permute(0, 2, 3, 1), qkernel, wscale, ascale, conv.bias,
+                   tuple(conv.stride), _padding(conv), conv.groups,
+                   compute_dtype)
     return y.permute(0, 3, 1, 2)
 
 
@@ -238,7 +257,10 @@ def quantized_apply(model: nn.Module, pack: QuantPack, x,
                     **forward_kwargs):
     """model(x) with every packed conv run as int8 x int8 -> int32. Convs
     not in the pack (policy-skipped, or newly added modules) run their own
-    fp forward."""
+    fp forward. The 1x1 kernels' repacks are made before the forward, so
+    the forward allocates none (a CUDA-graph capture of it may run)."""
+    int8_gemm.prepare(pack.qkernels.values())
+
     def call(path, conv, inp):
         if path not in pack.qkernels:
             return conv_forward(conv, inp)

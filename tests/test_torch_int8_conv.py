@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from mm_distillnet_torch import quant
 from mm_distillnet_torch.ops import int8_conv
 
 CIN = 8
@@ -422,14 +423,14 @@ def _fused_id(case):
 @pytest.mark.parametrize('case', FUSED, ids=[_fused_id(c) for c in FUSED])
 def test_fused_plain_version_is_the_unfused_sequence(case):
     """quantized_conv2d_reference, quantized_conv2d on a CPU tensor and the
-    route dispatch int8_conv.quantized_conv equal the torch sequence that
+    route dispatch quant.fused_conv equal the torch sequence that
     quant.quantized_conv ran before the fused kernel, bit for bit."""
     kind, dtype, bias, cdt = case
     args = _fused_operands(len(_fused_id(case)), kind, dtype, bias)
     want = _unfused(*args, cdt)
     assert want.dtype == dtype
     for fn in (int8_conv.quantized_conv2d_reference,
-               int8_conv.quantized_conv2d, int8_conv.quantized_conv):
+               int8_conv.quantized_conv2d, quant.fused_conv):
         got = fn(*args, cdt)
         assert got.dtype == dtype and got.shape == want.shape
         assert torch.equal(got, want), fn.__name__
@@ -535,19 +536,21 @@ def test_card_kernels_at_the_d2_shapes(call, dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize('case', FUSED, ids=[_fused_id(c) for c in FUSED])
 def test_card_fused_kernel_is_the_unfused_sequence(case, device):
-    """On the card, quantized_conv2d (the 'int8_conv2d' route) or the
-    unfused sequence around the s8 GEMM ('int_mm') equals the unfused
-    torch sequence bit for bit, and the fused kernel counts its launch."""
+    """On the card, quantized_conv2d (the 'int8_conv2d' route) or
+    int8_gemm's quantized_conv1x1 (the 'int_mm' route) equals the unfused
+    torch sequence bit for bit, and the route's fused kernel counts its
+    launch (torch._int_mm none)."""
     kind, dtype, bias, cdt = case
     args = _fused_operands(len(_fused_id(case)), kind, dtype, bias, device)
     want = _unfused(*args, cdt)
     int8_conv.reset_launches()
-    got = int8_conv.quantized_conv(*args, cdt)
+    got = quant.fused_conv(*args, cdt)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     fused = kind != 'int_mm'
     assert int8_conv.launches['quantized_conv2d'] == int(fused)
-    assert int8_conv.launches['int_mm'] == int(not fused)
+    assert int8_conv.launches['quantized_conv1x1'] == int(not fused)
+    assert int8_conv.launches['int_mm'] == 0
 
 
 @pytest.mark.cuda
@@ -609,3 +612,59 @@ def test_quantized_apply_is_unchanged_on_the_cpu(dtype, monkeypatch):
     assert len(flat(got)) == len(flat(want)) > 3
     for g, w in zip(flat(got), flat(want)):
         assert torch.equal(g, w)
+
+
+# ---- the fused kernel at the serving batch
+
+TORCH_DT = {'bf16': torch.bfloat16, 'fp16': torch.float16,
+            'fp32': torch.float32}
+DW_D2 = [c for c in D2_CALLS if c[1][1] == 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['bf16', 'fp16', 'fp32'])
+@pytest.mark.parametrize('call', DW_D2, ids=[_d2_id(c) for c in DW_D2])
+def test_card_kernels_at_the_d2_shapes_batch_8(call, dtype, device):
+    """quantized_conv2d at the depthwise D2@768 shapes at the serving
+    batch equals the unfused sequence bit for bit."""
+    x_shape, w_shape, s = call
+    x_shape = (8,) + x_shape[1:]
+    rng = np.random.default_rng(sum(x_shape))
+    x = torch.from_numpy(rng.standard_normal(x_shape).astype(
+        np.float32)).to(device, TORCH_DT[dtype])
+    qw = torch.from_numpy(rng.integers(-127, 128, w_shape).astype(
+        np.int8)).to(device)
+    wscale = torch.from_numpy(rng.uniform(1e-3, 2e-2, w_shape[0]).astype(
+        np.float32)).to(device)
+    ascale = torch.tensor(np.float32(3.0 / 127.0), device=device)
+    args = (x, qw, wscale, ascale, None, (s, s), Z, w_shape[0],
+            TORCH_DT[dtype])
+    got = int8_conv.quantized_conv2d(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _unfused(*args))
+
+
+@pytest.mark.cuda
+def test_card_fused_kernel_under_graph_capture(device):
+    """quantized_conv2d captured in a CUDA graph and replayed on new input
+    equals the unfused sequence."""
+    x_shape, w_shape = (8, 194, 194, 144), (144, 1, 3, 3)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(x_shape).astype(
+        np.float32)).to(device, torch.bfloat16)
+    qw = torch.from_numpy(rng.integers(-127, 128, w_shape).astype(
+        np.int8)).to(device)
+    wscale = torch.from_numpy(rng.uniform(1e-3, 2e-2, 144).astype(
+        np.float32)).to(device)
+    ascale = torch.tensor(np.float32(3.0 / 127.0), device=device)
+    static_x = x.clone()
+    args = (static_x, qw, wscale, ascale, None, (1, 1), Z, 144)
+    int8_conv.quantized_conv2d(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = int8_conv.quantized_conv2d(*args)
+    static_x.copy_(x * 0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, _unfused(*args, torch.bfloat16))

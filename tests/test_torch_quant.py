@@ -337,6 +337,49 @@ def test_quantized_conv_matches_numpy_int8_math(groups, features, bias):
     np.testing.assert_array_equal(got, want)
 
 
+class _OneConv1x1(nn.Module):
+    """One 1x1 conv with a bias: the 'int_mm' route's single call."""
+    features: int
+
+    @nn.compact
+    def __call__(self, x):
+        return nn.Conv(self.features, (1, 1), use_bias=True, name='conv')(x)
+
+
+ONE_1X1 = [(k, n, dt) for k, n in ((16, 96), (24, 144), (112, 112),
+                                   (352, 2112))
+           for dt in ('float32', 'bfloat16')]
+
+
+@pytest.mark.parametrize('k,n,dtype', ONE_1X1,
+                         ids=[f'{k}-{n}-{d}' for k, n, d in ONE_1X1])
+def test_one_1x1_conv_under_one_pack_matches_jax(k, n, dtype):
+    """A one-conv 1x1 flax module through the JAX package's
+    quantized_apply, and its pack through the port's fused 1x1 wrapper
+    (int8_gemm.quantized_conv1x1, the plain version on the CPU): the same
+    values, bit for bit, in both compute dtypes (the JAX ops run one by
+    one, so no fusion rounds differently)."""
+    from mm_distillnet_torch.ops import int8_gemm
+    jdtype, tdtype = DTYPES[dtype]
+    jmod = _OneConv1x1(n)
+    x = nhwc_input(k + n, (2, 7, 9, k)) * 3.0
+    v = filled_variables(jmod, k + n, x)
+    jpack = jq.build_quant_pack(jmod, to_jax(v), jnp.asarray(x), [x])
+    (path,) = jpack.qkernels
+    want = jq.quantized_apply(jmod, to_jax(v), jpack, jnp.asarray(x),
+                              compute_dtype=jdtype)
+    qw = torch.from_numpy(np.ascontiguousarray(np.asarray(
+        jpack.qkernels[path], np.int8).transpose(3, 2, 0, 1)))
+    got = int8_gemm.quantized_conv1x1(
+        torch.from_numpy(x), qw,
+        torch.from_numpy(np.asarray(jpack.wscales[path], np.float32).copy()),
+        torch.tensor(np.float32(jpack.ascales[path])),
+        torch.from_numpy(np.asarray(v['params']['conv']['bias'])), tdtype)
+    assert got.dtype == torch.float32 and got.shape == (2, 7, 9, n)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
 def test_policy_selects_the_jax_set():
     """The port's policy picks the JAX policy's convs (mapped to the port's
     names), on one MBConv block and on the detector, with and without the
