@@ -66,6 +66,7 @@ from ..ops.postprocess import detections_to_labels
 from ..ops.resize import maybe_stretch_mel_axis
 from ..parallel import mesh
 from ..train.optim import apply_gradients, build_optimizer
+from ..utils.profiling import span
 from .pseudo_labels import (PseudoLabelConfig, fuse_teacher_labels,
                             teacher_detections)
 
@@ -227,18 +228,19 @@ def teacher_targets(teachers: Mapping[str, Teacher],
     pseudo-labels, by method). `mix=False` leaves the audio mix out: a
     rank whose frames are not elements 0 and 1 of the global batch."""
     key = cfg.student_input
-    x = maybe_stretch_mel_axis(batch[key], cfg.pl.image_size)
-    augment = mix and cfg.audio_augmentation_merge and \
-        'augmented' in cfg.train_method
-    if augment and x.shape[0] < 2:
-        raise ValueError('the audio mix merges batch elements 0 and 1; '
-                         f'this batch holds {x.shape[0]}')
-    if augment:
-        x = merge_audio_batch01(x)
-    t_outs = _teacher_forward(teachers, {**batch, key: x})
-    if augment:
-        t_outs = {m: (c, r, average_teacher_features_batch01(f), lg)
-                  for m, (c, r, f, lg) in t_outs.items()}
+    with span('mmd.teachers'):
+        x = maybe_stretch_mel_axis(batch[key], cfg.pl.image_size)
+        augment = mix and cfg.audio_augmentation_merge and \
+            'augmented' in cfg.train_method
+        if augment and x.shape[0] < 2:
+            raise ValueError('the audio mix merges batch elements 0 and 1; '
+                             f'this batch holds {x.shape[0]}')
+        if augment:
+            x = merge_audio_batch01(x)
+        t_outs = _teacher_forward(teachers, {**batch, key: x})
+        if augment:
+            t_outs = {m: (c, r, average_teacher_features_batch01(f), lg)
+                      for m, (c, r, f, lg) in t_outs.items()}
 
     method = cfg.train_method
     if cfg.use_labels and method == 'traditional':
@@ -247,16 +249,17 @@ def teacher_targets(teachers: Mapping[str, Teacher],
         # losses on the same labels are equal, so one suffices
         annotations = [batch['label']]
     else:
-        per_teacher = _labels_per_teacher(t_outs, anchors, class_valid,
-                                          pred_to_label, cfg)
-        if method == 'traditional':
-            # per-teacher labels, no fusion (train_methods.py:520-584)
-            annotations = [torch.cat([lab[..., :4], lab[..., 5:6]], dim=-1)
-                           for lab in per_teacher]
-        else:
-            if augment:
-                per_teacher = _augment_label_union(per_teacher)
-            annotations = [fuse_teacher_labels(per_teacher, cfg.pl)]
+        with span('mmd.pseudo_labels'):
+            per_teacher = _labels_per_teacher(t_outs, anchors, class_valid,
+                                              pred_to_label, cfg)
+            if method == 'traditional':
+                # per-teacher labels, no fusion (train_methods.py:520-584)
+                annotations = [torch.cat([lab[..., :4], lab[..., 5:6]],
+                                         dim=-1) for lab in per_teacher]
+            else:
+                if augment:
+                    per_teacher = _augment_label_union(per_teacher)
+                annotations = [fuse_teacher_labels(per_teacher, cfg.pl)]
     return TeacherTargets(
         x, annotations, [f for (_, _, f, _) in t_outs.values()],
         [lg for (_, _, _, lg) in t_outs.values() if lg is not None])
@@ -277,49 +280,50 @@ def student_losses(student_model: nn.Module, targets: TeacherTargets,
     """The student's forward (train or eval mode, in `compute_dtype`) and
     its losses (fp32). Returns (loss, metrics) with the reference's logged
     quantities. `reduce_any` goes to the focal loss (a global batch)."""
-    student_model.train(train)
-    x = targets.student_input
-    with _autocast(x.device, compute_dtype):
-        out = student_model(x, generator=generator)
-    feats_s = student_model.distill_features(out)
+    with span('mmd.student'):
+        student_model.train(train)
+        x = targets.student_input
+        with _autocast(x.device, compute_dtype):
+            out = student_model(x, generator=generator)
+        feats_s = student_model.distill_features(out)
 
-    reg_losses, cls_losses = [], []
-    for ann in targets.annotations:
-        r, c = focal_loss(out.classification, out.regression, ann, anchors,
-                          reduce_any=reduce_any)
-        reg_losses.append(r)
-        cls_losses.append(c)
+        reg_losses, cls_losses = [], []
+        for ann in targets.annotations:
+            r, c = focal_loss(out.classification, out.regression, ann, anchors,
+                              reduce_any=reduce_any)
+            reg_losses.append(r)
+            cls_losses.append(c)
 
-    teacher_feats = targets.features
-    if not teacher_feats or cfg.kd_loss in (None, 'None'):
-        kd_losses = [torch.zeros(1, device=x.device)]
-    elif cfg.kd_loss == 'AttentionLoss':
-        kd_losses = [attention_transfer_loss(feats_s, ft, cfg.p)
-                     for ft in teacher_feats]
-    elif 'kdlist' in cfg.train_method:
-        kd_losses = [mta_loss(feats_s, teacher_feats, cfg.T, cfg.p,
-                              cfg.mta_parity)]
-    else:
-        kd_losses = [mta_loss(feats_s, ft, cfg.T, cfg.p, cfg.mta_parity)
-                     for ft in teacher_feats]
+        teacher_feats = targets.features
+        if not teacher_feats or cfg.kd_loss in (None, 'None'):
+            kd_losses = [torch.zeros(1, device=x.device)]
+        elif cfg.kd_loss == 'AttentionLoss':
+            kd_losses = [attention_transfer_loss(feats_s, ft, cfg.p)
+                         for ft in teacher_feats]
+        elif 'kdlist' in cfg.train_method:
+            kd_losses = [mta_loss(feats_s, teacher_feats, cfg.T, cfg.p,
+                                  cfg.mta_parity)]
+        else:
+            kd_losses = [mta_loss(feats_s, ft, cfg.T, cfg.p, cfg.mta_parity)
+                         for ft in teacher_feats]
 
-    if cfg.div_loss not in (None, 'None', 'DistillKL'):
-        # the reference's factory rejects it loudly (utils.py:1592)
-        raise ValueError(f'Unsupported DIV Loss {cfg.div_loss}')
-    loss_div = torch.zeros((), device=x.device)
-    if cfg.div_loss == 'DistillKL' and out.logits is not None:
-        for logits_t in targets.logits:
-            # class-axis softmax over (B, N_anchors, C) logits
-            loss_div = loss_div + distill_kl(out.logits, logits_t.float(),
-                                             T=4.0, axis=-1)
+        if cfg.div_loss not in (None, 'None', 'DistillKL'):
+            # the reference's factory rejects it loudly (utils.py:1592)
+            raise ValueError(f'Unsupported DIV Loss {cfg.div_loss}')
+        loss_div = torch.zeros((), device=x.device)
+        if cfg.div_loss == 'DistillKL' and out.logits is not None:
+            for logits_t in targets.logits:
+                # class-axis softmax over (B, N_anchors, C) logits
+                loss_div = loss_div + distill_kl(out.logits, logits_t.float(),
+                                                 T=4.0, axis=-1)
 
-    loss_regression = torch.stack(reg_losses).mean()
-    loss_cls = torch.stack(cls_losses).mean()
-    loss_kd = torch.stack(kd_losses).sum()
-    loss = (cfg.w_main * (loss_regression + loss_cls)
-            + cfg.w_div * loss_div + cfg.w_kd * loss_kd)
-    values = (loss, loss_regression, loss_cls, loss_div, loss_kd)
-    return loss, {k: v.detach() for k, v in zip(METRICS, values)}
+        loss_regression = torch.stack(reg_losses).mean()
+        loss_cls = torch.stack(cls_losses).mean()
+        loss_kd = torch.stack(kd_losses).sum()
+        loss = (cfg.w_main * (loss_regression + loss_cls)
+                + cfg.w_div * loss_div + cfg.w_kd * loss_kd)
+        values = (loss, loss_regression, loss_cls, loss_div, loss_kd)
+        return loss, {k: v.detach() for k, v in zip(METRICS, values)}
 
 
 def compute_distill_losses(student_model: nn.Module,
@@ -387,22 +391,27 @@ def make_train_step(teachers: Mapping[str, Teacher], cfg: DistillConfig,
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        generator.manual_seed(_step_seed(seed, state.step,
-                                         mesh.process_index()))
-        if sync:
-            use_sync_batch_norm(state.model)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = compute_distill_losses(
-            state.model, teachers, batch, cfg, anchors, class_valid,
-            pred_to_label, train=True, generator=generator,
-            compute_dtype=compute_dtype, global_batch=sync)
-        loss.backward()
-        apply_gradients(state.optimizer, reduce)
-        if world and not sync:
-            # rank 0's running statistics persist (DataParallel's replica 0)
-            mesh.broadcast_(list(state.model.buffers()))
-        state.step += 1
-        return _mean_over_ranks(metrics)
+        with span('mmd.train_step'):
+            generator.manual_seed(_step_seed(seed, state.step,
+                                             mesh.process_index()))
+            if sync:
+                use_sync_batch_norm(state.model)
+            with span('mmd.optimizer'):
+                state.optimizer.zero_grad(set_to_none=True)
+            loss, metrics = compute_distill_losses(
+                state.model, teachers, batch, cfg, anchors, class_valid,
+                pred_to_label, train=True, generator=generator,
+                compute_dtype=compute_dtype, global_batch=sync)
+            with span('mmd.backward'):
+                loss.backward()
+            with span('mmd.optimizer'):
+                apply_gradients(state.optimizer, reduce)
+                if world and not sync:
+                    # rank 0's running statistics persist (DataParallel's
+                    # replica 0)
+                    mesh.broadcast_(list(state.model.buffers()))
+            state.step += 1
+            return _mean_over_ranks(metrics)
 
     return train_step
 

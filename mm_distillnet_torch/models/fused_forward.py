@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops.fused_mbconv import (PROJECT_BM, check_kernel_fits, fold_mbconv,
                                 mbconv_fused)
+from ..utils.profiling import span
 from .efficientdet import BACKBONE_COEF, DetectorOutput, nchw, nhwc
 from .efficientdet_generator import EfficientDetGenerator
 from .efficientnet import BlockArgs, MBConvBlock, expand_block_args
@@ -161,8 +162,10 @@ def make_fused_predictor(model, state_dict: Mapping[str, torch.Tensor],
 
     @torch.no_grad()
     def forward(x: torch.Tensor) -> DetectorOutput:
-        feats = backbone(x)
-        return head.heads(*(nchw(f.to(dtype)) for f in feats[1:4]))
+        with span('mmd.backbone'):
+            feats = backbone(x)
+        with span('mmd.bifpn_heads'):
+            return head.heads(*(nchw(f.to(dtype)) for f in feats[1:4]))
 
     forward.backbone = backbone
     return forward

@@ -13,6 +13,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import span
 from .boxes import pairwise_iou_xyxy
 
 NEG_INF = -1e30
@@ -52,17 +53,20 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
         out = nms_fixed(boxes[None], scores[None], valid[None],
                         iou_threshold, max_out)
         return tuple(o[0] for o in out)
-    masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
-    order = torch.sort(-masked, dim=-1, stable=True).indices
-    b = _take(boxes, order)
-    v = _take(valid, order)
-    keep = _greedy_suppress(pairwise_iou_xyxy(b, b), v, iou_threshold)
+    with span('mmd.nms'):
+        masked = torch.where(valid, scores,
+                             torch.full_like(scores, NEG_INF))
+        order = torch.sort(-masked, dim=-1, stable=True).indices
+        b = _take(boxes, order)
+        v = _take(valid, order)
+        keep = _greedy_suppress(pairwise_iou_xyxy(b, b), v, iou_threshold)
 
-    keep_scores = torch.where(keep, _take(masked, order),
-                              torch.full_like(masked, NEG_INF))
-    sel = torch.sort(-keep_scores, dim=-1, stable=True).indices[:, :max_out]
-    kscores = _take(keep_scores, sel)
-    return _take(order, sel), kscores, kscores > NEG_INF / 2
+        keep_scores = torch.where(keep, _take(masked, order),
+                                  torch.full_like(masked, NEG_INF))
+        sel = torch.sort(-keep_scores, dim=-1,
+                         stable=True).indices[:, :max_out]
+        kscores = _take(keep_scores, sel)
+        return _take(order, sel), kscores, kscores > NEG_INF / 2
 
 
 def batched_class_nms_fixed(boxes: torch.Tensor, scores: torch.Tensor,

@@ -27,6 +27,7 @@ artifact.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -41,6 +42,7 @@ from .ops.postprocess import (Detections, class_validity_table,
 from .ops.resize import maybe_stretch_mel_axis
 from .parallel.mesh import over_mesh
 from .quant import pack_to, quantized_apply
+from .utils.profiling import span
 
 __all__ = ['make_serving_fn', 'export_predictor', 'load_predictor',
            'serve_many']
@@ -70,15 +72,28 @@ def make_serving_fn(model, state_dict, image_size: int, *,
     path (quant.quantized_apply) and no MBConv kernel runs. With `mesh` (a
     tuple of devices; `device` is then not read) any batch is split over
     one replica per device and the Detections come back on mesh[0]."""
-    if mesh is not None:
-        replicas = [make_serving_fn(
-            model, state_dict, image_size, conf_threshold=conf_threshold,
-            nms_threshold=nms_threshold, num_candidates=num_candidates,
-            max_detections=max_detections, approx=approx,
-            valid_prediction_ids=valid_prediction_ids,
-            num_classes=num_classes, plan_spec=plan_spec, dtype=dtype,
-            quant_pack=quant_pack, device=d) for d in mesh]
-        return over_mesh(mesh, replicas)
+    replica = functools.partial(
+        _replica, model, state_dict, image_size, conf_threshold,
+        nms_threshold, num_candidates, max_detections, approx,
+        valid_prediction_ids, num_classes, plan_spec, dtype, quant_pack)
+    call = replica(device) if mesh is None else \
+        over_mesh(mesh, [replica(d) for d in mesh])
+
+    def predict(x) -> Detections:
+        with span('mmd.serve'):
+            return call(x)
+
+    if mesh is None:
+        predict.forward = call.forward
+        predict.device = call.device
+    return predict
+
+
+def _replica(model, state_dict, image_size, conf_threshold, nms_threshold,
+             num_candidates, max_detections, approx, valid_prediction_ids,
+             num_classes, plan_spec, dtype, quant_pack, device):
+    """make_serving_fn's predictor on one device, under no span of its
+    own: the caller's `mmd.serve` covers a mesh's replicas at once."""
     dev = resolve_device(device)
     if quant_pack is not None:
         net = eval_module(model, state_dict, dev, dtype)
@@ -101,11 +116,12 @@ def make_serving_fn(model, state_dict, image_size: int, *,
     def predict(x) -> Detections:
         x = torch.as_tensor(x, device=dev)
         out = forward(maybe_stretch_mel_axis(x, image_size))
-        return postprocess_detections(
-            out.classification, out.regression, anchors, class_valid,
-            image_size=image_size, conf_threshold=conf_threshold,
-            nms_threshold=nms_threshold, num_candidates=num_candidates,
-            max_detections=max_detections, approx=approx)
+        with span('mmd.postprocess'):
+            return postprocess_detections(
+                out.classification, out.regression, anchors, class_valid,
+                image_size=image_size, conf_threshold=conf_threshold,
+                nms_threshold=nms_threshold, num_candidates=num_candidates,
+                max_detections=max_detections, approx=approx)
 
     predict.forward = forward
     predict.device = dev

@@ -7,13 +7,34 @@ the host's launch rate nor Python's dispatch enters the reading; on the
 CPU the host clock (`time.perf_counter`) times the calls.
 
     seconds = device_time(fn, args, iters=20)
+
+`span(name)` marks a layer of the program in a torch.profiler trace: a
+`record_function` while a profiler records (the span then shares the
+profiler's clock with the device's events), and nothing otherwise.
+
+    with span('mmd.postprocess'):
+        ...
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Sequence
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks `name` in a torch.profiler trace: a
+    `torch.profiler.record_function(name)` while a profiler records, else
+    one shared no-op context that enters no RecordFunction, so the spans
+    cost a flag test when no one profiles. The profiler keeps the spans
+    until it stops; nothing is kept here."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def graph_ms(fn: Callable[[], Any], reps: int = 20, replays: int = 3,
