@@ -186,12 +186,29 @@ Phases, each of which fails the run on any error:
      card's detections within 1 px (the slice phase's gate). The serve
      call's device time from utils.profiling.device_time (a CUDA graph of
      the call) beside graph_ms and the host clock;
-  12. report: one JSON line of kernel results (launches summed over the
+  12. nms: the greedy NMS kernel (csrc/nms.cu, ops/nms.py nms_fixed) at
+     the main path's shapes, (B, K) = (1, 512) and (32, 512) (serving),
+     (8, 512) (the teachers) and (8, 192) and (8, 96) (the label fusion),
+     on seeded overlapping boxes with class offsets and tied scores: its
+     three outputs must equal the plain version's on the card bit for
+     bit, one call must be one launch, and the kernel is timed alone
+     (CUDA-graph replays: device time) beside the host time of one call,
+     its bound and the plain version's time (CUDA events around eager
+     calls: its launches). `--nms-kernel` runs this phase alone
+     (chiprun_out/nms_kernel_s{seed}.json, no result line). Every
+     main-path run of the phases above also counts the NMS kernel's
+     launches: one a predictor call, NMS_PER_LABELS a teacher group's
+     labels (a train or validation step), NMS_PER_EVAL_BATCH an evaluated
+     batch;
+  13. report: one JSON line of kernel results (launches summed over the
      serving, teacher, train, cli, data, dist, quant and export phases;
      int8_conv2d's, quantized_conv2d's and quantized_conv1x1's over the
      quant phase's serving and evaluate(), their ms, plain ms and bound
      summed over one forward's calls, int8_conv2d's library_ms the fp32
-     cuDNN yardstick, quantized_conv1x1's torch._int_mm's),
+     cuDNN yardstick, quantized_conv1x1's torch._int_mm's; nms_fixed's
+     max_abs_err the largest difference from the plain version over the
+     nms phase's outputs, its ms, plain ms and bound summed over one train
+     step's calls, NMS_STEP; each shape's under "nms" in the JSON file),
      then as the last line {"ok": true, "device": {...}}.
 
 Per-block numbers go to chiprun_out/chip_smoke.json. Without a CUDA device
@@ -258,7 +275,7 @@ from mm_distillnet_torch.cli import train as cli_train
 from mm_distillnet_torch.train import checkpoint, trainer
 from mm_distillnet_torch.train.optim import apply_gradients, build_scheduler
 from mm_distillnet_torch import quant
-from mm_distillnet_torch.ops import int8_conv, int8_gemm
+from mm_distillnet_torch.ops import int8_conv, int8_gemm, nms
 from mm_distillnet_torch.utils import profiling
 from mm_distillnet_torch.utils.profiling import graph_ms
 
@@ -267,6 +284,10 @@ IN_CHANNELS = 8
 NUM_CLASSES = 20
 TEACHERS = ('rgb', 'thermal', 'depth')
 BLOCKS = 23   # MBConv blocks of EfficientDet-D2: launches per forward
+# NMS kernel launches: a teacher group's labels take one per teacher and
+# one for the fusion; an evaluated batch adds the student's detections
+NMS_PER_LABELS = len(TEACHERS) + 1
+NMS_PER_EVAL_BATCH = NMS_PER_LABELS + 1
 SOURCES = {'mbconv_expand_dw': 'mm_distillnet_torch/csrc/mbconv_expand_dw.cu',
            'mbconv_se': 'mm_distillnet_torch/csrc/mbconv.cu',
            'mbconv_project': 'mm_distillnet_torch/csrc/mbconv_project.cu'}
@@ -588,16 +609,13 @@ def slice_phase(batch: int, seed: int, device):
         (13, IMAGE_SIZE, IMAGE_SIZE, IN_CHANNELS), dtype=np.float32)
 
     # the main path: every count 0 just before, read just after
-    fm.reset_launches()
+    reset_launches()
     first = serve(images[:batch])
     requests = {n: serve_many(serve, images[:n], batch) for n in (8, 13)}
     torch.cuda.synchronize()
-    counts = dict(fm.launches)
     n_batches = 1 + sum(-(-n // batch) for n in requests)
-    for name, c in counts.items():
-        if c != BLOCKS * n_batches:
-            raise AssertionError(f'{name} launched {c} times, expected '
-                                 f'{BLOCKS} x {n_batches} batches')
+    counts = expect_launches(f'serving, {n_batches} batches',
+                             BLOCKS * n_batches, n_batches)
 
     for n, dets in requests.items():
         assert dets.boxes.shape == (n, 100, 4), dets.boxes.shape
@@ -788,16 +806,30 @@ def check_fused_labels(fused: torch.Tensor, batch: int, max_gt: int) -> int:
     return n_valid
 
 
-def expect_counts(what: str, counts: dict, per_kernel: int) -> dict:
+def reset_launches() -> None:
+    fm.reset_launches()
+    nms.reset_launches()
+
+
+def launch_counts() -> dict:
+    """The MBConv kernels' launches and the NMS kernel's."""
+    return {**fm.launches, **nms.launches}
+
+
+def expect_counts(what: str, counts: dict, per_kernel: int,
+                  nms_calls: int) -> dict:
+    """Each MBConv kernel launched per_kernel times, the NMS kernel
+    nms_calls times."""
     for name, c in counts.items():
-        if c != per_kernel:
+        want = nms_calls if name in nms.launches else per_kernel
+        if c != want:
             raise AssertionError(f'{what}: {name} launched {c} times, '
-                                 f'expected {per_kernel}')
+                                 f'expected {want}')
     return counts
 
 
-def expect_launches(what: str, per_kernel: int) -> dict:
-    return expect_counts(what, dict(fm.launches), per_kernel)
+def expect_launches(what: str, per_kernel: int, nms_calls: int) -> dict:
+    return expect_counts(what, launch_counts(), per_kernel, nms_calls)
 
 
 def teacher_phase(batch: int, seed: int, device, card: str):
@@ -837,15 +869,15 @@ def teacher_phase(batch: int, seed: int, device, card: str):
     setup_s = time.perf_counter() - t
 
     # the main path: every count 0 just before, read just after
-    fm.reset_launches()
+    reset_launches()
     fused = teacher_fn(t_vars, inputs, class_valid, lut)
     torch.cuda.synchronize()
     counts = expect_launches('teacher function',
-                             BLOCKS * len(TEACHERS))
-    fm.reset_launches()
+                             BLOCKS * len(TEACHERS), NMS_PER_LABELS)
+    reset_launches()
     rows, _ = predict(s_vars, inputs['audio'], class_valid, lut)
     torch.cuda.synchronize()
-    for name, c in expect_launches('predict function', BLOCKS).items():
+    for name, c in expect_launches('predict function', BLOCKS, 1).items():
         counts[name] += c
     max_gt = config.getint('max_gt')
     n_valid = check_fused_labels(fused, batch, max_gt)
@@ -936,14 +968,14 @@ def teacher_phase(batch: int, seed: int, device, card: str):
               + json.dumps(timing[part]), flush=True)
 
     # evaluate() end to end: both CSV files, finite numbers
-    fm.reset_launches()
+    reset_launches()
     table = evaluate({m: (teachers[m], t_vars[m]) for m in teachers},
                      (student, s_vars), dataset, config, device=device)
     torch.cuda.synchronize()
     n_batches = frames // batch
     for name, c in expect_launches(
-            'evaluate()',
-            n_batches * BLOCKS * (len(TEACHERS) + 1)).items():
+            'evaluate()', n_batches * BLOCKS * (len(TEACHERS) + 1),
+            n_batches * NMS_PER_EVAL_BATCH).items():
         counts[name] += c
     if [r['modality'] for r in table] != ['ALL']:
         raise AssertionError(f'testing points {table}')
@@ -1018,10 +1050,11 @@ def train_phase(batch: int, seed: int, device, card: str):
     # the main path: every count 0 just before, read just after
     base_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    fm.reset_launches()
+    reset_launches()
     history = [step(state, inputs)]
     torch.cuda.synchronize()
-    counts = expect_launches('train step', BLOCKS * len(TEACHERS))
+    counts = expect_launches('train step', BLOCKS * len(TEACHERS),
+                             NMS_PER_LABELS)
     peak_bytes = torch.cuda.max_memory_allocated()
     # (3) 8 steps of Adam on the fixed batch
     history += [step(state, inputs) for _ in range(7)]
@@ -1102,15 +1135,15 @@ def train_phase(batch: int, seed: int, device, card: str):
 
     sections['readings'] = time.perf_counter() - t0
     # (4) train() end to end: two iterations, one validation, a checkpoint
-    fm.reset_launches()
+    reset_launches()
     final = trainer.train({m: (net, net.state_dict())
                            for m, net in teachers.items()},
                           (student, student.state_dict()), config, train_set,
                           val_set, device=device)
     torch.cuda.synchronize()
     # two train iterations and two validation batches, three teachers each
-    for name, c in expect_launches('train()',
-                                   4 * BLOCKS * len(TEACHERS)).items():
+    for name, c in expect_launches('train()', 4 * BLOCKS * len(TEACHERS),
+                                   4 * NMS_PER_LABELS).items():
         counts[name] += c
     if final.step != 2:
         raise AssertionError(f'train() took {final.step} steps')
@@ -1271,6 +1304,7 @@ def cli_phase(batch: int, seed: int, device, card: str):
     steps = min(2, math.ceil(frames / batch))   # fast_run: two batches
     expected = 2 * steps * BLOCKS * len(TEACHERS) \
         + steps * BLOCKS * (len(TEACHERS) + 1)
+    expected_nms = 2 * steps * NMS_PER_LABELS + steps * NMS_PER_EVAL_BATCH
     with timed_calls(cli_train, 'load_model', seconds, loads), \
             timed_calls(cli_train, 'get_dataset', seconds), \
             timed_calls(trainer, 'make_teachers', seconds), \
@@ -1281,12 +1315,12 @@ def cli_phase(batch: int, seed: int, device, card: str):
             timed_calls(cli_train, 'train', seconds), \
             timed_calls(cli_train, 'evaluate', seconds):
         torch.cuda.synchronize()
-        fm.reset_launches()       # the main path: counts 0 just before
+        reset_launches()       # the main path: counts 0 just before
         t = time.perf_counter()
         table = cli_train.main(args)
         torch.cuda.synchronize()
         seconds['train_cli'] = time.perf_counter() - t
-        counts = expect_launches('train CLI', expected)
+        counts = expect_launches('train CLI', expected, expected_nms)
     teachers = {args_[2]: out[1] for args_, out in loads
                 if args_[2] != 'audio_student'}
     if sorted(teachers) != sorted(TEACHERS):
@@ -1331,7 +1365,7 @@ def cli_phase(batch: int, seed: int, device, card: str):
     eval_over = dict(overwrite, eval_split='val',
                      exp_name=str(root / 'exp_eval'))
     torch.cuda.synchronize()
-    fm.reset_launches()
+    reset_launches()
     t = time.perf_counter()
     scored = cli_evaluate.main(['--config_file', str(RECIPE),
                                 '--checkpoint', str(exp / 'best.0'),
@@ -1339,7 +1373,8 @@ def cli_phase(batch: int, seed: int, device, card: str):
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t
     for name, c in expect_launches(
-            'evaluate CLI', steps * BLOCKS * (len(TEACHERS) + 1)).items():
+            'evaluate CLI', steps * BLOCKS * (len(TEACHERS) + 1),
+            steps * NMS_PER_EVAL_BATCH).items():
         counts[name] += c
     diff = max(abs(scored[0][k] - v) for k, v in numbers.items())
     if not diff <= CLI_AP_TOL:
@@ -1581,6 +1616,7 @@ def data_phase(batch: int, seed: int, device, card: str):
     steps = min(2, SPLIT_FRAMES // batch)    # fast_run: two batches
     expected = 2 * steps * BLOCKS * len(TEACHERS) \
         + steps * BLOCKS * (len(TEACHERS) + 1)
+    expected_nms = 2 * steps * NMS_PER_LABELS + steps * NMS_PER_EVAL_BATCH
     with timed_calls(cli_train, 'load_model', seconds), \
             timed_calls(cli_train, 'get_dataset', seconds), \
             timed_calls(trainer, 'make_teachers', seconds), \
@@ -1591,12 +1627,13 @@ def data_phase(batch: int, seed: int, device, card: str):
             timed_calls(cli_train, 'train', seconds), \
             timed_calls(cli_train, 'evaluate', seconds):
         torch.cuda.synchronize()
-        fm.reset_launches()       # the main path: counts 0 just before
+        reset_launches()       # the main path: counts 0 just before
         t = time.perf_counter()
         table = cli_train.main(args)
         torch.cuda.synchronize()
         seconds['train_cli'] = time.perf_counter() - t
-        counts = expect_launches('train CLI on the Freiburg tree', expected)
+        counts = expect_launches('train CLI on the Freiburg tree',
+                                 expected, expected_nms)
     numbers = {k: v for k, v in table[0].items()
                if k not in ('exp_name', 'modality')}
     if not all(np.isfinite(v) for v in numbers.values()):
@@ -1622,7 +1659,7 @@ def data_phase(batch: int, seed: int, device, card: str):
     sections['train CLI'] = time.perf_counter() - t0
 
     torch.cuda.synchronize()
-    fm.reset_launches()
+    reset_launches()
     t = time.perf_counter()
     scored = cli_evaluate.main(['--config_file', str(RECIPE),
                                 '--checkpoint', str(exp / 'best.0'),
@@ -1633,7 +1670,8 @@ def data_phase(batch: int, seed: int, device, card: str):
     eval_s = time.perf_counter() - t
     eval_launches = steps * BLOCKS * (len(TEACHERS) + 1)
     for name, c in expect_launches('evaluate CLI on the Freiburg tree',
-                                   eval_launches).items():
+                                   eval_launches,
+                                   steps * NMS_PER_EVAL_BATCH).items():
         counts[name] += c
     if not all(np.isfinite(v) for k, v in scored[0].items()
                if k not in ('exp_name', 'modality')):
@@ -1665,7 +1703,7 @@ def data_phase(batch: int, seed: int, device, card: str):
     mix_rng = np.random.default_rng(seed)
     kd = {'mix_ms_per_batch': [], 'mix_ms_per_frame': [], 'step_s': [],
           'losses': []}
-    fm.reset_launches()
+    reset_launches()
     for host, _ in zip(DataLoader(train_set, batch, shuffle=True,
                                   num_workers=6), range(2)):
         t = time.perf_counter()
@@ -1685,7 +1723,8 @@ def data_phase(batch: int, seed: int, device, card: str):
         kd['step_s'].append(time.perf_counter() - t)
         kd['losses'].append({k: float(v) for k, v in metrics.items()})
     for name, c in expect_launches('kdlist steps',
-                                   2 * BLOCKS * len(TEACHERS)).items():
+                                   2 * BLOCKS * len(TEACHERS),
+                                   2 * NMS_PER_LABELS).items():
         counts[name] += c
     if not all(np.isfinite(list(m.values())).all() for m in kd['losses']):
         raise AssertionError(f'kdlist losses {kd["losses"]}')
@@ -1960,7 +1999,7 @@ def dist_steps_worker(spec: dict) -> None:
                                         compute_dtype=dt, seed=spec['seed'],
                                         bn_mode=mode, device=dev)
                  for dt in (torch.float32, dtype)}
-        fm.reset_launches()
+        reset_launches()
         metrics = [_step_metrics(steps[torch.float32](state, inputs))
                    for _ in range(2)]
         torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
@@ -1975,7 +2014,7 @@ def dist_steps_worker(spec: dict) -> None:
             step_ms.append((time.perf_counter() - t) * 1e3)
         report['modes'][mode] = {
             'metrics': metrics, 'bf16_step_ms': step_ms,
-            'launches': dict(fm.launches), 'peak_mib': _peak_mib(dev),
+            'launches': launch_counts(), 'peak_mib': _peak_mib(dev),
             'all_reduce_ms': all_reduce_ms(state.model, dev),
             'grad_mib': sum(p.numel() for p in state.model.parameters())
             * 4 / 2**20}
@@ -1987,14 +2026,14 @@ def dist_steps_worker(spec: dict) -> None:
 def dist_cli_worker(spec: dict) -> None:
     """A rank of phase 9's train CLI: cli.train.main with the phase's
     arguments; its launches and AP table written for the parent."""
-    fm.reset_launches()
+    reset_launches()
     t = time.perf_counter()
     table = cli_train.main(spec['cli_args'])
     _sync(spec['device'])
     rank = mesh.process_index()
     Path(spec['dir'], f'cli.{rank}.json').write_text(json.dumps({
         'rank': rank, 'world': mesh.process_count(),
-        'seconds': time.perf_counter() - t, 'launches': dict(fm.launches),
+        'seconds': time.perf_counter() - t, 'launches': launch_counts(),
         'table': table}))
     mesh.barrier()
     dist.destroy_process_group()
@@ -2029,11 +2068,11 @@ def dist_phase(batch: int, seed: int, device, card: str):
               class_valid, lut)
     frozen = ts.make_teachers(teachers, image_size=IMAGE_SIZE, fused=True,
                               dtype=dtype, device=device)
-    counts = {k: 0 for k in fm.launches}
+    counts = {k: 0 for k in launch_counts()}
     per_step = BLOCKS * len(TEACHERS)
 
-    def add(what, per_kernel):
-        for name, c in expect_launches(what, per_kernel).items():
+    def add(what, per_kernel, nms_calls):
+        for name, c in expect_launches(what, per_kernel, nms_calls).items():
             counts[name] += c
 
     readings = {}
@@ -2069,7 +2108,7 @@ def dist_phase(batch: int, seed: int, device, card: str):
             ts.make_train_step(frozen, cfg, *tables, compute_dtype=dt,
                                seed=seed, device=device)
             for dt in (cmp, dtype))
-        fm.reset_launches()
+        reset_launches()
         got = [_step_metrics(group_step(group, inputs)) for _ in range(2)]
         _sync(device)
         gap = compare_runs('nccl_world_of_1', got, want,
@@ -2087,7 +2126,7 @@ def dist_phase(batch: int, seed: int, device, card: str):
                 'all_reduce_ms': all_reduce_ms(group.model, device),
                 'grad_mib': sum(p.numel() for p in group.model.parameters())
                 * 4 / 2**20, 'gap': gap}
-        add('NCCL world of one, 4 steps', 4 * per_step)
+        add('NCCL world of one, 4 steps', 4 * per_step, 4 * NMS_PER_LABELS)
         dist.destroy_process_group()
     finally:
         for k, v in saved_env.items():
@@ -2155,8 +2194,8 @@ def dist_phase(batch: int, seed: int, device, card: str):
                     reports[0]['modes'][mode]['metrics']:
                 raise AssertionError(f'{mode}: rank {r} logged other metrics')
             for name, c in expect_counts(f'gloo world {mode} rank {r}',
-                                         got['launches'],
-                                         4 * per_step).items():
+                                         got['launches'], 4 * per_step,
+                                         4 * NMS_PER_LABELS).items():
                 counts[name] += c
             gloo[mode][f'rank{r}'] = {k: got[k] for k in
                                       ('bf16_step_ms', 'all_reduce_ms',
@@ -2198,11 +2237,13 @@ def dist_phase(batch: int, seed: int, device, card: str):
     cli_s = time.perf_counter() - t
     steps = min(2, math.ceil(frames // ranks / batch))
     expected = 2 * steps * per_step + steps * BLOCKS * (len(TEACHERS) + 1)
+    expected_nms = 2 * steps * NMS_PER_LABELS + steps * NMS_PER_EVAL_BATCH
     clis = [json.loads((root / f'cli.{r}.json').read_text())
             for r in range(ranks)]
     for rep in clis:
         for name, c in expect_counts(f'train CLI rank {rep["rank"]}',
-                                     rep['launches'], expected).items():
+                                     rep['launches'], expected,
+                                     expected_nms).items():
             counts[name] += c
         if rep['world'] != ranks or not all(
                 np.isfinite(v) for row in rep['table'] for v in row.values()
@@ -2238,10 +2279,10 @@ def dist_phase(batch: int, seed: int, device, card: str):
     serve1 = make_serving_fn(student, sd, IMAGE_SIZE, device=device)
     serve2 = make_serving_fn(student, sd, IMAGE_SIZE, mesh=pair)
     want_d = serve1(x)
-    fm.reset_launches()
+    reset_launches()
     got_d = serve2(x)
     _sync(device)
-    add('sharded serve', 2 * BLOCKS)
+    add('sharded serve', 2 * BLOCKS, 2)
     matched, total = match_detections(want_d, got_d)
     pcfg = load_config(str(RECIPE), extra=dict(extra, max_detections=100))
     predict1 = make_predict_fn(student, IMAGE_SIZE, pcfg, variables=sd,
@@ -2250,10 +2291,10 @@ def dist_phase(batch: int, seed: int, device, card: str):
                                mesh=pair)
     audio = inputs['audio'][:odd]
     rows1, feats1 = predict1(None, audio, class_valid, lut)
-    fm.reset_launches()
+    reset_launches()
     rows2, feats2 = predict2(None, audio, class_valid, lut)
     _sync(device)
-    add('sharded predict', 2 * BLOCKS)
+    add('sharded predict', 2 * BLOCKS, 2)
     feat_corr = min(corr(a, b) for a, b in zip(feats1, feats2))
     same_rows = float((rows1 == rows2).all(-1).float().mean())
     sharded = {'serve_batch': odd, 'detections_matched': matched,
@@ -2567,14 +2608,15 @@ def quant_phase(batch: int, seed: int, device, card: str,
                             device=device)
     torch.cuda.synchronize()
     int8_conv.reset_launches()
-    fm.reset_launches()
+    reset_launches()
     first = serve(x)
     again = serve_many(serve, np.concatenate([images, images[:3]]), batch)
     torch.cuda.synchronize()
     counts = expect_int8('quantized serving',
                          {r: 3 * n for r, n in per_forward.items()})
     copies = dict(int8_conv.layout_copies)
-    expect_launches('quantized serving (no MBConv kernel)', 0)
+    counts.update(expect_launches('quantized serving (no MBConv kernel)',
+                                  0, 3))
     if not (torch.isfinite(first.boxes).all() and np.isfinite(
             again.scores).all()):
         raise AssertionError('quantized serving: non-finite detections')
@@ -2583,13 +2625,13 @@ def quant_phase(batch: int, seed: int, device, card: str,
 
     # (4) against the bf16 fused predictor (the kernels) on the same batch
     fused = make_serving_fn(model, sd, IMAGE_SIZE, device=device)
-    fm.reset_launches()
+    reset_launches()
     det_f = fused(x)
     out_f = fused.forward(x)
     torch.cuda.synchronize()
     for name, c in expect_launches('bf16 fused predictor',
-                                   2 * BLOCKS).items():
-        counts[name] = c
+                                   2 * BLOCKS, 1).items():
+        counts[name] += c
     out_q = serve.forward(x)
     agree = agreement(out_q, out_f)
     matched = {'1px': match_detections(det_f, first),
@@ -2637,14 +2679,14 @@ def quant_phase(batch: int, seed: int, device, card: str,
     n_batches = -(-len(test_set) // batch)
     torch.cuda.synchronize()
     int8_conv.reset_launches()
-    fm.reset_launches()
+    reset_launches()
     table = evaluate(teachers, (model, sd), test_set, config, device=device)
     torch.cuda.synchronize()
     got = expect_int8('quantized evaluate()',
                       {r: n_batches * n for r, n in per_forward.items()})
     for name, c in expect_launches('quantized evaluate() teachers',
-                                   n_batches * BLOCKS * len(TEACHERS)
-                                   ).items():
+                                   n_batches * BLOCKS * len(TEACHERS),
+                                   n_batches * NMS_PER_EVAL_BATCH).items():
         counts[name] += c
     for r, c in got.items():
         counts[r] += c
@@ -2694,10 +2736,10 @@ def export_worker(spec: dict) -> None:
     x = torch.load(spec['x'], map_location=spec['device'])
     launches = []
     for _ in range(2):
-        fm.reset_launches()
+        reset_launches()
         dets = predict(x)
         _sync(spec['device'])
-        launches.append(dict(fm.launches))
+        launches.append(launch_counts())
     torch.save({'detections': [t.cpu() for t in dets],
                 'launches': launches}, spec['out'])
 
@@ -2746,9 +2788,11 @@ def export_phase(batch: int, seed: int, device, card: str):
         if not torch.equal(got, w.cpu()):
             raise AssertionError(f'the replayed artifact\'s {field} differ '
                                  'from make_serving_fn\'s')
+    counts = {n: 0 for n in launch_counts()}
     for i, c in enumerate(replayed['launches']):
-        expect_counts(f'replayed artifact, call {i}', c, BLOCKS)
-    counts = {n: 2 * BLOCKS for n in fm.launches}
+        for name, n in expect_counts(f'replayed artifact, call {i}', c,
+                                     BLOCKS, 1).items():
+            counts[name] += n
     sections['replay'] = time.perf_counter() - t0
 
     # (3) a CPU predictor exported for the card (platforms=('cuda',)),
@@ -2762,11 +2806,11 @@ def export_phase(batch: int, seed: int, device, card: str):
                      str(path_cpu), platforms=(device.type,))
     export_cpu_s = time.perf_counter() - t
     moved = load_predictor(str(path_cpu), device=device)
-    fm.reset_launches()
+    reset_launches()
     det_m = moved(x)
     torch.cuda.synchronize()
     for name, c in expect_launches('CPU export on the card',
-                                   BLOCKS).items():
+                                   BLOCKS, 1).items():
         counts[name] += c
     got, total = match_detections(want, det_m)
     bit_equal = all(torch.equal(a, b) for a, b in zip(det_m, want))
@@ -2797,6 +2841,80 @@ def export_phase(batch: int, seed: int, device, card: str):
     return {'counts': counts, **result, 'sections': sections}
 
 
+# the NMS kernel's shapes on the main path: (B, K, max_out)
+NMS_SHAPES = {'serve_b1': (1, 512, 100), 'serve_b32': (32, 512, 100),
+              'teachers': (8, 512, 32), 'fusion_mix': (8, 192, 64),
+              'fusion': (8, 96, 64)}
+# one train step's NMS calls at batch 8 (three teachers, the fusion under
+# the audio mix): the report's ms, plain_ms and bound_ms sum over them
+NMS_STEP = {'teachers': len(TEACHERS), 'fusion_mix': 1}
+# operations of one IoU test, as ops/boxes.py pairwise_iou_xyxy computes
+# it and the threshold decides it: the second box's area (2 subs, a mul),
+# 4 max / min, 2 subs, 2 clamps, the intersection's mul, an add, a sub, the
+# union's clamp, a division and the comparison
+NMS_IOU_OPS = 17
+
+
+def nms_inputs(seed: int, b: int, k: int):
+    """Candidates as the post-process hands them over: boxes of 8-160 px
+    crowded into a quarter of the image so that many overlap, offset by
+    class (batched_class_nms_fixed's coord_bound 769), scores on 64 levels
+    (ties), 80% valid."""
+    g = torch.Generator().manual_seed(seed)
+    corner = torch.rand(b, k, 2, generator=g) * (IMAGE_SIZE / 4)
+    size = 8 + 152 * torch.rand(b, k, 2, generator=g)
+    cls = torch.randint(0, NUM_CLASSES, (b, k, 1), generator=g)
+    boxes = torch.cat([corner, corner + size], -1) + cls * (IMAGE_SIZE + 1.0)
+    scores = torch.randint(0, 64, (b, k), generator=g) / 64.0
+    return boxes, scores, torch.rand(b, k, generator=g) < 0.8
+
+
+def nms_phase(seed: int, device, card: str) -> dict:
+    """The NMS kernel against the plain version, bit for bit, and timed
+    alone at each of NMS_SHAPES."""
+    rows, max_err = {}, 0.0
+    for name, (b, k, max_out) in NMS_SHAPES.items():
+        args = [t.to(device) for t in nms_inputs(seed + k + b, b, k)]
+
+        def kernel():
+            return nms.nms_fixed(*args, 0.5, max_out)
+
+        def plain():
+            return nms.nms_fixed_reference(*args, 0.5, max_out)
+
+        reset_launches()
+        got = kernel()
+        torch.cuda.synchronize()
+        expect_launches(f'nms {name}', 0, 1)
+        want = plain()
+        for g, w in zip(got, want):
+            max_err = max(max_err, float((g.double() - w.double()).abs()
+                                         .max()))
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            if not torch.equal(g, w):
+                raise RuntimeError(f'nms {name}: the kernel differs from the '
+                                   'plain version')
+        m = got[0].shape[1]
+        # each input read once, each output written once; the fp32 IoU
+        # tests of the K (K - 1) / 2 pairs
+        t_bytes = (b * k * (16 + 4 + 1) + b * m * (8 + 4 + 1)) / 3.35e12
+        t_ops = NMS_IOU_OPS * b * k * (k - 1) / 2 / 67e12
+        r = rows[name] = {
+            'b': b, 'k': k, 'max_out': max_out, 'kept': int(got[2].sum()),
+            'ms': graph_ms(kernel), 'host_ms': host_ms(kernel, 20),
+            'plain_ms': time_ms(plain, 5),
+            'bound_ms': max(t_bytes, t_ops) * 1e3,
+            'bound_bytes_ms': t_bytes * 1e3}
+        print(f"{card} | nms {name} (B {b}, K {k}): {r['ms']:.4f} ms "
+              f"device, {r['host_ms']:.3f} ms host a call, bound "
+              f"{r['bound_ms']:.5f} ms, plain {r['plain_ms']:.2f} ms; "
+              'bit-equal, 1 launch', flush=True)
+    step = {f: sum(n * rows[s][f] for s, n in NMS_STEP.items())
+            for f in ('ms', 'plain_ms', 'bound_ms', 'bound_bytes_ms')}
+    return {'shapes': rows, 'max_abs_err': max_err, 'step': step}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     p.add_argument('--seed', type=int, default=0)
@@ -2809,6 +2927,9 @@ def main(argv=None) -> int:
     p.add_argument('--int8-kernels', action='store_true',
                    help="only phase 10's checks and timings of the int8 "
                    'kernels on one forward (no result line)')
+    p.add_argument('--nms-kernel', action='store_true',
+                   help="only phase 12's checks and timings of the NMS "
+                   'kernel (no result line)')
     a = p.parse_args(argv)
     if a.export_worker:
         export_worker(json.loads(Path(a.spec).read_text()))
@@ -2850,6 +2971,12 @@ def main(argv=None) -> int:
             print(f'  nvcc {name}: {injected} wgmma fences/waits injected '
                   'by ptxas')
 
+    if a.nms_kernel:
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / f'nms_kernel_s{a.seed}.json').write_text(json.dumps(
+            {'card': card, 'build_s': build_s,
+             **nms_phase(a.seed, device, card)}, indent=1))
+        return 0
     if a.int8_kernels:
         checked = quant_phase(a.batch, a.seed, device, card,
                               kernels_only=True)
@@ -2867,6 +2994,7 @@ def main(argv=None) -> int:
                'dist': dist_phase(a.batch, a.seed, device, card),
                'quant': quant_phase(a.batch, a.seed, device, card),
                'export': export_phase(a.batch, a.seed, device, card)}
+    nms_checked = nms_phase(a.seed, device, card)
 
     kernels = []
     for name, t in totals.items():
@@ -2893,12 +3021,23 @@ def main(argv=None) -> int:
             'bound_by': ('bytes' if t['bound_bytes_ms'] * 2 >= t['bound_ms']
                          else 'operations'),
             'library_ms': t[lib] if lib else None})
+    t = nms_checked['step']
+    kernels.append({
+        'name': 'nms_fixed', 'route': 'cuda',
+        'source': 'mm_distillnet_torch/csrc/nms.cu',
+        'replaces': 'mm_distillnet_tpu/ops/nms.py:_greedy_suppress',
+        'launches': sum(r['counts']['nms_fixed'] for r in results.values()),
+        'max_abs_err': nms_checked['max_abs_err'], 'ms': t['ms'],
+        'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+        'bound_by': ('bytes' if t['bound_bytes_ms'] * 2 >= t['bound_ms']
+                     else 'operations'),
+        'library_ms': None})
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps({
         'card': card, 'kind': kind, 'torch': torch.__version__,
         'cuda': torch.version.cuda, 'batch': a.batch, 'seed': a.seed,
         'build_s': build_s, 'kernels': kernels, 'blocks': rows,
-        **results}, indent=1, default=str))
+        **results, 'nms': nms_checked}, indent=1, default=str))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

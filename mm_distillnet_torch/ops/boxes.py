@@ -37,6 +37,9 @@ def clip_boxes(boxes: torch.Tensor, image_size: float) -> torch.Tensor:
     ], dim=-1)
 
 
+UNION_EPS = 1e-8   # pairwise_iou_xyxy's floor on the union
+
+
 def pairwise_iou_xyxy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """IoU between xyxy boxes a (..., N, 4) and b (..., M, 4) -> (..., N, M)."""
     area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
@@ -46,7 +49,7 @@ def pairwise_iou_xyxy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     wh = (rb - lt).clamp(min=0)
     inter = wh[..., 0] * wh[..., 1]
     union = area_a[..., :, None] + area_b[..., None, :] - inter
-    return inter / union.clamp(min=1e-8)
+    return inter / union.clamp(min=UNION_EPS)
 
 
 def iou_anchors_vs_gt(anchors_yxyx: torch.Tensor, gt_xyxy: torch.Tensor

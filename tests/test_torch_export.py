@@ -90,6 +90,17 @@ def test_export_roundtrip_in_a_fresh_process(exported, tmp_path):
         assert torch.equal(g, w)
 
 
+def test_exported_nms_is_one_op(exported):
+    """The exported predictor runs its per-class NMS as one node, the custom
+    op `mm_distillnet::nms_fixed` (the CPU implementation on replay above),
+    not as the plain version's loop of a few ops per candidate."""
+    _, path, _ = exported
+    graph = torch.export.load(path).graph
+    calls = [n.target for n in graph.nodes if n.op == 'call_function']
+    assert calls.count(torch.ops.mm_distillnet.nms_fixed.default) == 1
+    assert len(calls) < 1000
+
+
 def test_platforms(exported, tmp_path):
     live, _, x = exported
     path = str(tmp_path / 'cpu.pt2')

@@ -116,6 +116,42 @@ def test_nms_batches_images_like_a_loop():
             assert torch.equal(g[i], o)
 
 
+@pytest.mark.parametrize('max_out', [40, 120])
+def test_nms_op_cpu_matches_jax_with_ties(max_out):
+    """The custom op `mm_distillnet::nms_fixed` on CPU tensors (its plain
+    implementation), batched, against the JAX reference image by image;
+    max_out below and above K gives max_out and K rows."""
+    ins = [_nms_inputs(s) for s in (0, 1, 2)]
+    stacked = [torch.from_numpy(np.stack(a)) for a in zip(*ins)]
+    got = torch.ops.mm_distillnet.nms_fixed(*stacked[:3], 0.5, max_out)
+    assert got[0].shape == (3, min(max_out, 96))
+    for i, (boxes, scores, valid, _) in enumerate(ins):
+        want = jn.nms_fixed(jnp.asarray(boxes), jnp.asarray(scores),
+                            jnp.asarray(valid), 0.5, max_out)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[i].numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize('k,max_out', [(96, 40), (24, 40), (96, 0)])
+def test_nms_op_fake_matches_cpu(k, max_out):
+    """The fake implementation's shapes and dtypes are the CPU outputs',
+    and the op passes torch.library's checks (schema, fake against CPU,
+    dynamic shapes)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    ins = [torch.from_numpy(np.stack(a)) for a in
+           zip(*[_nms_inputs(s, k)[:3] for s in (7, 8)])]
+    want = torch.ops.mm_distillnet.nms_fixed(*ins, 0.5, max_out)
+    with FakeTensorMode() as mode:
+        got = torch.ops.mm_distillnet.nms_fixed(
+            *[mode.from_tensor(t) for t in ins], 0.5, max_out)
+    assert [(g.shape, g.dtype) for g in got] == \
+        [(w.shape, w.dtype) for w in want]
+    assert want[0].shape == (2, min(k, max_out))
+    result = torch.library.opcheck(torch.ops.mm_distillnet.nms_fixed.default,
+                                   (*ins, 0.5, max_out))
+    assert set(result.values()) == {'SUCCESS'}, result
+
+
 def _pp_inputs(seed, n_cls=20):
     rng = np.random.default_rng(seed)
     n = ta.num_anchors(SIZE)
