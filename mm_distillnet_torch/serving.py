@@ -10,6 +10,15 @@ module tree runs the int8 path instead. `serve_many` chunks any number of
 images into the predictor's batch, zero-pads the tail and returns the
 real rows.
 
+On a card the predictor replays that device work as a CUDA graph, one a
+key (the input's shape and dtype once on the card): the first call of a
+key runs the sequence once on a side stream (builds, library handles, the
+device caches of ops/resize.py and ops/anchors.py) and captures it; every
+call copies its input into the graph's static buffer, replays, and
+returns clones of the graph's outputs, so a caller may keep every call's
+Detections and reuse its input at once. On the CPU, while torch.export
+traces and inside a caller's own capture the sequence runs as it is.
+
 A compact-audio batch (80 mel rows instead of `image_size`) is stretched
 on the device first (ops/resize.py); any other height raises. With a
 `mesh` (parallel.mesh.create_mesh: a tuple of devices) the predictor
@@ -28,6 +37,7 @@ artifact.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -76,17 +86,39 @@ def make_serving_fn(model, state_dict, image_size: int, *,
         _replica, model, state_dict, image_size, conf_threshold,
         nms_threshold, num_candidates, max_detections, approx,
         valid_prediction_ids, num_classes, plan_spec, dtype, quant_pack)
-    call = replica(device) if mesh is None else \
-        over_mesh(mesh, [replica(d) for d in mesh])
-
-    def predict(x) -> Detections:
-        with span('mmd.serve'):
-            return call(x)
-
     if mesh is None:
-        predict.forward = call.forward
-        predict.device = call.device
-    return predict
+        one = replica(device)
+        predict = _Predictor(one, [one])
+        predict.forward = one.forward
+        predict.run = one.run
+        predict.device = one.device
+        return predict
+    replicas = [replica(d) for d in mesh]
+    return _Predictor(over_mesh(mesh, replicas), replicas)
+
+
+class _Predictor:
+    """make_serving_fn's predictor: `call` under the `mmd.serve` span.
+    `captures` and `replays` sum its replicas' CUDA graphs' (0 on the
+    CPU). Without a mesh it also carries its replica's `forward` (the
+    eager forward), `run` (the eager call on a tensor on the device) and
+    `device`."""
+
+    def __init__(self, call, replicas):
+        self._call = call
+        self.replicas = replicas
+
+    def __call__(self, x) -> Detections:
+        with span('mmd.serve'):
+            return self._call(x)
+
+    @property
+    def captures(self) -> int:
+        return sum(r.graphs.captures for r in self.replicas)
+
+    @property
+    def replays(self) -> int:
+        return sum(r.graphs.replays for r in self.replicas)
 
 
 def _replica(model, state_dict, image_size, conf_threshold, nms_threshold,
@@ -113,8 +145,7 @@ def _replica(model, state_dict, image_size, conf_threshold, nms_threshold,
         device=dev)
 
     @torch.no_grad()
-    def predict(x) -> Detections:
-        x = torch.as_tensor(x, device=dev)
+    def run(x: torch.Tensor) -> Detections:
         out = forward(maybe_stretch_mel_axis(x, image_size))
         with span('mmd.postprocess'):
             return postprocess_detections(
@@ -123,9 +154,69 @@ def _replica(model, state_dict, image_size, conf_threshold, nms_threshold,
                 nms_threshold=nms_threshold, num_candidates=num_candidates,
                 max_detections=max_detections, approx=approx)
 
+    graphs = _Graphs(run, dev)
+
+    @torch.no_grad()
+    def predict(x) -> Detections:
+        x = torch.as_tensor(x, device=dev)
+        if dev.type != 'cuda' or torch.compiler.is_exporting() or \
+                torch.cuda.is_current_stream_capturing():
+            return run(x)
+        return graphs(x)
+
     predict.forward = forward
+    predict.run = run
+    predict.graphs = graphs
     predict.device = dev
     return predict
+
+
+class _Graphs:
+    """`run` on one card as a CUDA graph a key (shape, dtype): captured at
+    the key's first call, replayed at every call (that one too). Each new
+    key costs an eager pass and a capture, and its graph is kept. All the
+    graphs allocate from one memory pool: a lock, held from the copy in
+    to the clones out, lets one replay run at a time. A capture that
+    fails raises. The kernels' own counters count what their wrappers
+    launch: the eager pass and the capture, not a replay."""
+
+    def __init__(self, run: Callable[[torch.Tensor], Detections],
+                 dev: torch.device):
+        self.run = run
+        self.dev = dev
+        self.graphs: dict = {}
+        self.captures = 0
+        self.replays = 0
+        self._pool = None
+        self._lock = threading.Lock()
+
+    def __call__(self, x: torch.Tensor) -> Detections:
+        with self._lock, torch.cuda.device(self.dev):
+            key = (tuple(x.shape), x.dtype)
+            if key not in self.graphs:
+                self.graphs[key] = self._capture(x)
+            graph, static_x, static_out = self.graphs[key]
+            static_x.copy_(x)
+            with span('mmd.graph_replay'):
+                graph.replay()
+            self.replays += 1
+            return Detections(*(t.clone() for t in static_out))
+
+    def _capture(self, x: torch.Tensor):
+        """The graph of `run` on a static copy of x, and its outputs."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        static_x = x.clone(memory_format=torch.contiguous_format)
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(torch.cuda.current_stream(self.dev))
+        with torch.cuda.stream(side):
+            self.run(static_x)
+        torch.cuda.current_stream(self.dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=side):
+            static_out = self.run(static_x)
+        self.captures += 1
+        return graph, static_x, static_out
 
 
 class _Exported(torch.nn.Module):

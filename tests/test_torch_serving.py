@@ -50,6 +50,20 @@ def test_serving_fn_matches_reference(served):
                                rtol=1e-5, atol=1e-5)
 
 
+def test_cpu_predictor_captures_no_graph(served):
+    """On the CPU the predictor runs its sequence as it is: no CUDA graph
+    is captured or replayed, and repeated calls give the same Detections
+    as the eager call on the same input."""
+    port, x, _ = served
+    first, again = port(x), port(x)
+    want = port.run(torch.as_tensor(x))
+    for a, b, w in zip(first, again, want):
+        assert torch.equal(a, b) and torch.equal(a, w)
+    assert first.boxes.data_ptr() != again.boxes.data_ptr()
+    assert (port.captures, port.replays) == (0, 0)
+    assert not port.replicas[0].graphs.graphs
+
+
 def test_serve_many_pads_and_chunks(served):
     """5 images through a batch-2 predictor: 3 chunks, the tail padded;
     each row equals the direct prediction of its chunk."""
